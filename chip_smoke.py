@@ -1,9 +1,11 @@
 """On-card smoke check of the PyTorch/CUDA port.
 
 Builds every CUDA kernel of the port from the checkout, holds each against
-its plain-torch twin on the card, drives the port's main path (the forward
-render of the bench scene, 1M splats at 1280x720, and the `render` CLI) and
-prints one JSON line per phase. The last lines are the `kernels` record, the
+its plain-torch twin on the card, drives the port's main paths at the bench
+scene's full width (1M splats at 1280x720): the forward render, the
+gradients of the whole rasterizer against the plain-torch backend,
+fwd+bwd timing, and photometric pose refinement; then the `render` and
+`photometric` CLI. It prints one JSON line per phase. The last lines are the `kernels` record, the
 card's name and power limit, and `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one GPU
@@ -33,9 +35,20 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# Per live (pixel, entry) pair: ~20 FP32 operations and one exp (SFU),
-# counted as 21 operations against the FP32 peak.
-OPS_PER_PAIR = 21
+# FP32 operations per (pixel, entry) pair, counted once from the kernels'
+# formulas (csrc/composite_fwd.cu, csrc/composite_bwd.cu), an FMA as two and
+# an exp, a division, a compare or a select as one. Every pair whose pixel
+# is still alive (T > tmin before the entry) needs the visibility test: dx
+# and dy (2), sigma (9), its clamp at 0 and the exp (2), raw alpha and the
+# alpha_max clamp (2), the alpha_clip, sigma and T tests (3).
+OPS_TEST = 18
+# A pair the forward composites (visible) adds in the forward: w (1), the
+# transmittance update (2), the alpha, rgb and depth sums (9).
+OPS_VISIBLE_FWD = 12
+# ... and in the backward: w (1), the transmittance update (2), dL/dw (8),
+# prefix and suffix (3), dL/dalpha (4), the alpha_max and sigma masks (4),
+# the ten per-entry values (23), their pixel sums (10).
+OPS_VISIBLE_BWD = 55
 
 # Bench scene and config (bench.py): 1M splats, SH degree 0, 1280x720, 70°.
 WIDTH, HEIGHT, N_SPLATS = 1280, 720, 1_000_000
@@ -69,18 +82,23 @@ def max_errs(got, want):
 
 def random_tiles(rng, counts, K: int, device):
     """Seeded [T, 10, K] tile params shaped like the gather's output: slots
-    past counts[t] are zero. Every fourth tile holds large opaque splats so
-    its pixels saturate within the first chunk."""
+    past counts[t] are zero. Every fourth tile holds large splats of opacity
+    0.998-1 centred within 0.05 px of a pixel centre, so its pixels saturate
+    within the first chunk and some raw alphas reach alpha_max (0.999): the
+    backward's clamp branch."""
     T = len(counts)
     big = (np.arange(T) % 4 == 0)[:, None]
     var_x = np.where(big, rng.uniform(40, 200, (T, K)), rng.uniform(0.5, 30, (T, K)))
     var_y = np.where(big, rng.uniform(40, 200, (T, K)), rng.uniform(0.5, 30, (T, K)))
     cov_xy = rng.uniform(-0.7, 0.7, (T, K)) * np.sqrt(var_x * var_y)
     det = var_x * var_y - cov_xy ** 2
+    mx, my = rng.uniform(-4, 20, (T, K)), rng.uniform(-4, 20, (T, K))
+    centred = rng.uniform(-0.05, 0.05, (2, T, K))
     g = np.stack([
-        rng.uniform(-4, 20, (T, K)), rng.uniform(-4, 20, (T, K)),
+        np.where(big, np.floor(mx) + 0.5 + centred[0], mx),
+        np.where(big, np.floor(my) + 0.5 + centred[1], my),
         var_y / det, -cov_xy / det, var_x / det,
-        np.where(big, rng.uniform(0.9, 0.99, (T, K)), rng.uniform(0.05, 0.95, (T, K))),
+        np.where(big, rng.uniform(0.998, 1.0, (T, K)), rng.uniform(0.05, 0.95, (T, K))),
         rng.uniform(0, 1, (T, K)), rng.uniform(0, 1, (T, K)), rng.uniform(0, 1, (T, K)),
         rng.uniform(1, 5, (T, K)),
     ], axis=1)
@@ -108,30 +126,110 @@ def check_png(path: str, width: int, height: int) -> None:
         raise AssertionError(f"{path}: IDAT payload has the wrong size")
 
 
-def bench_scene(dev):
-    """The bench scene (bench.py) on `dev`, drawn from numpy's
-    default_rng(0) in bench.py's order: (rasterize_arrays arguments, config)."""
-    from gaussiansplattingregistration_tpu_torch.models.camera import Camera
-    from gaussiansplattingregistration_tpu_torch.ops import math3d
-    from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig
+def demo_photometric_views(out_dir: str, size: int, device):
+    """tests/test_e2e_cli.py's photometric scenario for the port's CLI: the
+    demo pair merged under its true transform, rendered from three spread
+    views at size x size into `out_dir`/view<i>.png with a 3DGS
+    cameras.json. Returns (cameras.json path, init transform path, T_offset):
+    the init is the true pose inv(T_offset) perturbed by a twist of norm
+    ~0.02."""
+    from gaussiansplattingregistration_tpu_torch.models.camera import Camera, look_at
+    from gaussiansplattingregistration_tpu_torch.ops import se3
+    from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
+    from gaussiansplattingregistration_tpu_torch.utils import io as gio
+    from gaussiansplattingregistration_tpu_torch.utils.png import write_png
 
+    data = os.path.join(REPO, "tests", "data")
+    with open(os.path.join(data, "demo_transform.json")) as fh:
+        T_off = np.asarray(json.load(fh)["T_offset"], np.float64)
+    source = gio.load_gaussian_cloud(os.path.join(data, "demo_source.ply"), device=device)
+    target = gio.load_gaussian_cloud(os.path.join(data, "demo_target.ply"), device=device)
+    scene = source.merge(target, np.linalg.inv(T_off))
+    f = size / (2 * math.tan(math.radians(60) / 2))
+    entries = []
+    for i, eye in enumerate(((2.2, 1.4, 2.6), (-2.0, 0.8, 2.9), (0.4, -2.1, 2.7))):
+        V = look_at(eye, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), zoom=float(np.linalg.norm(eye)),
+                    forward="+z", device=device)
+        cam = Camera.create(np.eye(3), np.zeros(3), f, f, size, size, device=device,
+                            image_name=f"view{i}").with_viewmat(V)
+        rgb, alpha, _ = rasterize(scene, cam, config=RasterizeConfig(), device=device)
+        if not float(alpha.mean()) > 0.05:
+            raise AssertionError(f"view {i} of the demo scene is nearly empty")
+        write_png(os.path.join(out_dir, f"view{i}.png"),
+                  (np.clip(rgb.cpu().numpy(), 0, 1) * 255).astype(np.uint8))
+        c2w = np.linalg.inv(V.cpu().numpy().astype(np.float64))
+        entries.append({"img_name": f"view{i}", "width": size, "height": size,
+                        "fx": f, "fy": f, "rotation": c2w[:3, :3].tolist(),
+                        "position": c2w[:3, 3].tolist()})
+    cams_json = os.path.join(out_dir, "cameras.json")
+    with open(cams_json, "w") as fh:
+        json.dump(entries, fh)
+    xi = torch.tensor([0.01, -0.008, 0.006, 0.008, -0.006, 0.01], dtype=torch.float64)
+    init = se3.se3_exp(xi).numpy() @ np.linalg.inv(T_off)
+    init_json = os.path.join(out_dir, "init.json")
+    with open(init_json, "w") as fh:
+        json.dump({"transformation": init.tolist()}, fh)
+    return cams_json, init_json, T_off
+
+
+def pose_error(T_est, T_off) -> float:
+    """|se3_log(T_est @ T_offset)|: zero when T_est == inv(T_offset)."""
+    from gaussiansplattingregistration_tpu_torch.ops import se3
+
+    residual = torch.as_tensor(np.asarray(T_est) @ np.asarray(T_off), dtype=torch.float32)
+    return float(torch.linalg.norm(se3.se3_log(residual)))
+
+
+def _bench_draws():
+    """bench.py's scene arrays, drawn from numpy's default_rng(0) in its
+    order: xyz, scales, quats, opacity logits, features."""
     rng = np.random.default_rng(0)
     n = N_SPLATS
     xyz = rng.uniform(-1, 1, size=(n, 3)).astype(np.float32)
     scales = rng.uniform(0.002, 0.006, size=(n, 3)).astype(np.float32)
     quats = rng.normal(size=(n, 4)).astype(np.float32)
-    opacity = (1.0 / (1.0 + np.exp(-rng.normal(0.0, 1.0, size=n)))).astype(np.float32)
+    logits = rng.normal(0.0, 1.0, size=n)
     features = (rng.normal(size=(n, 1, 3)) * 0.3).astype(np.float32)
+    return xyz, scales, quats, logits, features
+
+
+def bench_camera(dev):
+    from gaussiansplattingregistration_tpu_torch.models.camera import Camera
+
+    f = WIDTH / (2 * math.tan(math.radians(70) / 2))
+    return Camera.create(np.eye(3), [0.0, 0.0, 3.0], f, f, WIDTH, HEIGHT, device=dev)
+
+
+def bench_config():
+    from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig
+
+    return RasterizeConfig(max_tiles_per_splat=4, max_splats_per_tile=384,
+                           tile_chunk=32, max_live_tiles=2688, backend="cuda")
+
+
+def bench_scene(dev):
+    """The bench scene (bench.py) on `dev`: (rasterize_arrays arguments,
+    config)."""
+    from gaussiansplattingregistration_tpu_torch.ops import math3d
+
+    xyz, scales, quats, logits, features = _bench_draws()
+    opacity = (1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
     cov = math3d.covariance_from_scaling_rotation(
         torch.as_tensor(scales, device=dev), torch.as_tensor(quats, device=dev))
-    f = WIDTH / (2 * math.tan(math.radians(70) / 2))
-    cam = Camera.create(np.eye(3), [0.0, 0.0, 3.0], f, f, WIDTH, HEIGHT, device=dev)
+    cam = bench_camera(dev)
     args = (torch.as_tensor(xyz, device=dev), cov, torch.as_tensor(opacity, device=dev),
             torch.as_tensor(features, device=dev), cam.viewmat, cam.intrinsics,
             WIDTH, HEIGHT, 0, torch.zeros(3, device=dev))
-    cfg = RasterizeConfig(max_tiles_per_splat=4, max_splats_per_tile=384,
-                          tile_chunk=32, max_live_tiles=2688, backend="cuda")
-    return args, cfg
+    return args, bench_config()
+
+
+def bench_cloud(dev):
+    """The bench scene's splats as a GaussianCloud (the same draws)."""
+    from gaussiansplattingregistration_tpu_torch.models.gaussian_cloud import GaussianCloud
+
+    xyz, scales, quats, logits, features = _bench_draws()
+    return GaussianCloud.create(xyz, features, np.zeros((N_SPLATS, 0, 3), np.float32),
+                                logits, np.log(scales), quats, sh_degree=0, device=dev)
 
 
 def kernel_inputs(args, cfg):
@@ -160,16 +258,80 @@ def kernel_inputs(args, cfg):
             "cnt": counts[:T_live, None].float()}
 
 
+def pair_counts(gT, cnt, ts: int, config, tiles_per_step: int = 256) -> dict:
+    """The compositor's data-dependent work on (gT, cnt), counted over
+    (pixel, entry) pairs with the entry inside its tile's count: `alive`,
+    the pixel's transmittance before the entry above transmittance_min (the
+    pairs a kernel must test); `visible`, those of them it composites;
+    `clamped`, visible pairs whose raw alpha reaches alpha_max. The
+    transmittance is the forward twin's."""
+    from gaussiansplattingregistration_tpu_torch.ops import raster_cuda as RC
+
+    K, S = gT.shape[2], RC._CHUNK
+    px, py = RC._pixel_centres(ts, gT)
+    n = {"alive": 0, "visible": 0, "clamped": 0}
+    for t0 in range(0, gT.shape[0], tiles_per_step):
+        g = gT[t0:t0 + tiles_per_step]
+        _, in_count = RC._in_count(cnt[t0:t0 + tiles_per_step], g.shape[0], K, g.device)
+        carry = torch.ones((g.shape[0], ts * ts), dtype=g.dtype, device=g.device)
+        for c0 in range(0, K, S):
+            inc = in_count[:, c0:c0 + S]
+            *_, raw, alpha = RC._chunk_terms(g[:, :, c0:c0 + S], px, py, inc, config)
+            lt = torch.log1p(-alpha)
+            cum = torch.cumsum(lt, dim=2)
+            alive = (carry[:, :, None] * torch.exp(cum - lt) > config.transmittance_min) \
+                & inc[:, None, :]
+            visible = alive & (alpha > 0)
+            n["alive"] += int(alive.sum())
+            n["visible"] += int(visible.sum())
+            n["clamped"] += int((visible & (raw >= config.alpha_max)).sum())
+            carry = carry * torch.exp(cum[:, :, -1])
+    return n
+
+
+def bwd_errs(got, want):
+    """Per channel of d_gT: max abs error and the twin's max abs."""
+    err = (got - want).abs().amax(dim=(0, 2))
+    scale = want.abs().amax(dim=(0, 2))
+    return err.tolist(), scale.tolist()
+
+
+def check_bwd(got, want, where: str) -> dict:
+    """The backward kernel within 1e-3 of each channel's max abs in the
+    twin: the JAX suite's gradient tolerance (tests/test_raster_pallas.py).
+    Pixel sums run in another order, and the kernel's suffix is a total
+    minus a prefix where the twin cumsums the chunk back to front."""
+    err, scale = bwd_errs(got, want)
+    if not all(e <= 1e-3 * s for e, s in zip(err, scale)):
+        raise AssertionError(f"composite_bwd disagrees with its twin ({where}): {err} vs {scale}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"composite_bwd is not finite ({where})")
+    return {"max_abs_err": err, "twin_max_abs": scale}
+
+
+def reset_launches(raster_cuda) -> None:
+    raster_cuda.composite_tiles.launches = 0
+    raster_cuda.composite_tiles_bwd.launches = 0
+
+
+def read_launches(raster_cuda) -> dict:
+    torch.cuda.synchronize()
+    return {"composite_fwd": raster_cuda.composite_tiles.launches,
+            "composite_bwd": raster_cuda.composite_tiles_bwd.launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from gaussiansplattingregistration_tpu_torch.ops import _build, raster_cuda
+    from gaussiansplattingregistration_tpu_torch.ops import _build, raster_cuda, se3
     from gaussiansplattingregistration_tpu_torch.ops import rasterize as R
+    from gaussiansplattingregistration_tpu_torch.pipelines import photometric
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
 
     # 1. Card and toolchain.
     card = subprocess.run(
@@ -191,10 +353,10 @@ def main() -> int:
                         if "registers" in ln or "smem" in ln or "spill" in ln]
                     for k, v in _build.build_logs.items()}})
 
-    # 3. Kernel vs twin on seeded tiles. Tolerances: rgb/alpha 1e-5 and
-    # depth 1e-4 (depths reach 5); `live` exactly. The kernel keeps T as a
-    # running product, the twin as exp(cumsum(log1p(-alpha))): they differ
-    # by rounding only.
+    # 3. Kernels vs twins on seeded tiles. Forward tolerances: rgb/alpha
+    # 1e-5 and depth 1e-4 (depths reach 5); `live` exactly. The kernel keeps
+    # T as a running product, the twin as exp(cumsum(log1p(-alpha))): they
+    # differ by rounding only. Backward: check_bwd, on seeded cotangents.
     cfg = R.RasterizeConfig()
     rng = np.random.default_rng(0)
     for K, fixed in ((384, [0, 1, 127, 128, 129, 384]), (64, [0, 1, 63, 64])):
@@ -210,34 +372,48 @@ def main() -> int:
         if not (errs[0] <= 1e-5 and errs[1] <= 1e-5 and errs[2] <= 1e-4 and live_eq):
             raise AssertionError(f"composite kernel disagrees with its twin at K={K}")
 
-    # 4. The main path at full width: the bench scene through
+        cts = [torch.tensor(rng.normal(size=s), dtype=torch.float32, device=dev)
+               for s in ((64, 256, 3), (64, 256), (64, 256))]
+        d_got = raster_cuda.composite_tiles_bwd(gT, cnt, *cts, 16, cfg)
+        torch.cuda.synchronize()
+        d_want = raster_cuda.composite_tiles_reference_bwd(gT, cnt, *cts, 16, cfg)
+        rec = check_bwd(d_got, d_want, f"seeded tiles, K={K}")
+        past = all(bool((d_got[t, :, c:] == 0).all()) for t, c in enumerate(counts))
+        clamped = pair_counts(gT, cnt, 16, cfg)["clamped"]
+        emit({"phase": "bwd_kernel_vs_twin", "tiles": 64, "K": K, **rec,
+              "zeros_past_counts": past, "clamped_pairs": clamped})
+        if not past:
+            raise AssertionError("composite_bwd wrote nonzero gradients past a tile's count")
+        if not clamped:
+            raise AssertionError("no seeded pair reaches the alpha_max clamp")
+
+    # 4. The forward path at full width: the bench scene through
     # rasterize_arrays_with_stats, then the same frame on backend="torch".
     t0 = time.perf_counter()
     args, cfg = bench_scene(dev)
 
-    raster_cuda.composite_tiles.launches = 0
+    reset_launches(raster_cuda)
     rgb, alpha, depth, stats = R.rasterize_arrays_with_stats(*args, cfg)
-    torch.cuda.synchronize()
-    launches = {"composite_fwd": raster_cuda.composite_tiles.launches}
+    launches_render = read_launches(raster_cuda)
     stats = {k: (float(v) if v.is_floating_point() else int(v)) for k, v in stats.items()}
     finite = all(bool(torch.isfinite(x).all()) for x in (rgb, alpha, depth))
     tcfg = dataclasses.replace(cfg, backend="torch")
     rgb_t, _, _ = R.rasterize_arrays(*args, tcfg)
     err_torch = float((rgb - rgb_t).abs().max())
     emit({"phase": "render", "splats": N_SPLATS, "width": WIDTH, "height": HEIGHT,
-          "stats": stats, "launches": launches, "finite": finite,
+          "stats": stats, "launches": launches_render, "finite": finite,
           "rgb_max_abs_err_vs_torch_backend": err_torch,
           "mean_alpha": float(alpha.mean()), "seconds": time.perf_counter() - t0})
     if not finite:
         raise AssertionError("render is not finite")
     if stats["live_tile_overflow"] != 0:
         raise AssertionError(f"live_tile_overflow = {stats['live_tile_overflow']}")
-    if launches["composite_fwd"] < 1:
+    if launches_render["composite_fwd"] < 1:
         raise AssertionError("the render did not launch the composite kernel")
     if not err_torch <= 1e-4:
         raise AssertionError(f"cuda vs torch backend rgb differs by {err_torch}")
 
-    # The kernel's inputs for this frame, as rasterize_tile_slab builds them.
+    # The kernels' inputs for this frame, as rasterize_tile_slab builds them.
     ts = cfg.tile_size
     inputs = kernel_inputs(args, cfg)
     gT, cnt, T_live = inputs["gT"], inputs["cnt"], inputs["T_live"]
@@ -258,61 +434,224 @@ def main() -> int:
     if not (errs[0] <= 1e-4 and errs[1] <= 1e-4 and errs[2] <= 4e-4 and live_eq):
         raise AssertionError("composite kernel disagrees with its twin at bench scale")
 
+    # The backward kernel vs its twin at the same shapes, seeded cotangents.
+    gen = np.random.default_rng(1)
+    cts = [torch.tensor(gen.normal(size=s), dtype=torch.float32, device=dev)
+           for s in ((T_live, ts * ts, 3), (T_live, ts * ts), (T_live, ts * ts))]
+    d_got = raster_cuda.composite_tiles_bwd(gT, cnt, *cts, ts, cfg)
+    torch.cuda.synchronize()
+    d_want = raster_cuda.composite_tiles_reference_bwd(gT, cnt, *cts, ts, cfg)
+    bwd_rec = check_bwd(d_got, d_want, "bench shapes")
+    emit({"phase": "bwd_kernel_vs_twin", "tiles": T_live, "K": cfg.max_splats_per_tile,
+          **bwd_rec})
+    bwd_err = max(bwd_rec["max_abs_err"])
+    del d_want
+
+    # 5. Gradients at full width: d sum(rgb * ct) / d(means, cov, opacity,
+    # features) on backend "cuda" (one composite_fwd and one composite_bwd
+    # launch) against backend "torch" (plain autograd of the chunked
+    # compositor), f32 transport. Tolerance: 1e-3 of each tensor's max abs,
+    # the JAX suite's gradient tolerance.
+    t0 = time.perf_counter()
+    ct = torch.tensor(np.random.default_rng(2).uniform(-1, 1, (HEIGHT, WIDTH, 3)),
+                      dtype=torch.float32, device=dev)
+
+    def grads(config):
+        params = [a.detach().clone().requires_grad_(True) for a in args[:4]]
+        out = R.rasterize_arrays_with_stats(*params, *args[4:], config)
+        return torch.autograd.grad((out[0] * ct).sum(), params), out[3]
+
+    reset_launches(raster_cuda)
+    g_cuda, gstats = grads(cfg)
+    launches_grad = read_launches(raster_cuda)
+    g_torch, _ = grads(tcfg)
+    grad_rec = {}
+    for name, a, b in zip(("means", "cov", "opacity", "features"), g_cuda, g_torch):
+        grad_rec[name] = {"max_abs_err": float((a - b).abs().max()),
+                          "scale": float(b.abs().max()),
+                          "finite": bool(torch.isfinite(a).all())}
+    emit({"phase": "grad", "launches": launches_grad, "grads": grad_rec,
+          "live_tile_overflow": int(gstats["live_tile_overflow"]),
+          "bwd_cap_violations": int(gstats["bwd_cap_violations"]),
+          "seconds": time.perf_counter() - t0})
+    if launches_grad != {"composite_fwd": 1, "composite_bwd": 1}:
+        raise AssertionError(f"grad launches {launches_grad}, expected one of each")
+    if int(gstats["live_tile_overflow"]) or int(gstats["bwd_cap_violations"]):
+        raise AssertionError("the gradient frame overflowed a static bound")
+    for name, rec in grad_rec.items():
+        if not (rec["finite"] and rec["scale"] > 0 and rec["max_abs_err"] <= 1e-3 * rec["scale"]):
+            raise AssertionError(f"cuda vs torch gradient of {name}: {rec}")
+    del g_cuda, g_torch
+
+    # 6. Timing on this card, this call.
     frame_ms = cuda_ms(lambda: R.rasterize_arrays(*args, cfg), iters=10)
     frame_torch_ms = cuda_ms(lambda: R.rasterize_arrays(*args, tcfg), iters=3, warmup=1)
     kernel_ms = cuda_ms(lambda: raster_cuda.composite_tiles(gT, cnt, ts, cfg), iters=20)
     plain_ms = cuda_ms(lambda: raster_cuda.composite_tiles_reference(gT, cnt, ts, cfg),
                        iters=3, warmup=1)
-    # Least time for the kernel's work on these inputs: live (pixel, entry)
-    # pairs from the stats' chunk-granular horizon, against reading gT and
-    # counts once and writing [T, P, 5] once.
-    pairs = stats["mean_live"] * num_tiles * ts * ts
-    ops_ms = pairs * OPS_PER_PAIR / PEAK_FP32_FLOPS * 1e3
+    bwd_ms = cuda_ms(lambda: raster_cuda.composite_tiles_bwd(gT, cnt, *cts, ts, cfg), iters=20)
+    bwd_plain_ms = cuda_ms(
+        lambda: raster_cuda.composite_tiles_reference_bwd(gT, cnt, *cts, ts, cfg),
+        iters=3, warmup=1)
+    params = [a.detach().clone().requires_grad_(True) for a in args[:4]]
+
+    def fwd_bwd(config):
+        rgb_ = R.rasterize_arrays(*params, *args[4:], config)[0]
+        return torch.autograd.grad(rgb_.sum(), params)
+
+    # f32 and bf16 transport in turns (f32, bf16, bf16, f32): the eager
+    # frame's time follows the host, which drifts within a call.
+    bf16_cfg = dataclasses.replace(cfg, bwd_sort_bf16=True)
+    turns = [cuda_ms(lambda c=c: fwd_bwd(c), iters=5) for c in (cfg, bf16_cfg, bf16_cfg, cfg)]
+    train_ms, train_bf16_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    # Least time for each kernel's work on these inputs: the visibility test
+    # on every alive pair and the rest of the formula on the visible ones,
+    # this frame's counts, against reading its inputs once and writing its
+    # outputs once. `horizon_pairs` (the stats' chunk-granular horizon) is
+    # what the kernels' block-level exit visits.
+    pairs = pair_counts(gT, cnt, ts, cfg)
+    horizon_pairs = stats["mean_live"] * num_tiles * ts * ts
+    ops_ms = ((pairs["alive"] * OPS_TEST + pairs["visible"] * OPS_VISIBLE_FWD)
+              / PEAK_FP32_FLOPS * 1e3)
     nbytes = gT.numel() * 4 + cnt.numel() * 4 + T_live * ts * ts * 5 * 4
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
+    bwd_ops_ms = ((pairs["alive"] * OPS_TEST + pairs["visible"] * OPS_VISIBLE_BWD)
+                  / PEAK_FP32_FLOPS * 1e3)
+    bwd_nbytes = 2 * gT.numel() * 4 + cnt.numel() * 4 + T_live * ts * ts * 5 * 4
+    bwd_bytes_ms = bwd_nbytes / PEAK_BYTES_PER_S * 1e3
+    bwd_bound_ms = max(bwd_ops_ms, bwd_bytes_ms)
     emit({"phase": "timing", "card": card, "frame_ms": frame_ms,
           "frame_mpx_per_s": WIDTH * HEIGHT / frame_ms / 1e3,
           "frame_torch_backend_ms": frame_torch_ms,
           "kernel_ms": kernel_ms, "kernel_mpx_per_s": WIDTH * HEIGHT / kernel_ms / 1e3,
-          "plain_ms": plain_ms, "live_pairs": pairs, "ops_bound_ms": ops_ms,
-          "bytes": nbytes, "bytes_bound_ms": bytes_ms})
+          "plain_ms": plain_ms, "horizon_pairs": horizon_pairs,
+          "alive_pairs": pairs["alive"], "visible_pairs": pairs["visible"],
+          "ops_bound_ms": ops_ms,
+          "bytes": nbytes, "bytes_bound_ms": bytes_ms,
+          "fwd_bwd_ms": train_ms, "fwd_bwd_mpx_per_s": WIDTH * HEIGHT / train_ms / 1e3,
+          "fwd_bwd_bf16_ms": train_bf16_ms,
+          "fwd_bwd_bf16_mpx_per_s": WIDTH * HEIGHT / train_bf16_ms / 1e3,
+          "fwd_bwd_turns_ms": turns,
+          "bwd_kernel_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
+          "bwd_ops_bound_ms": bwd_ops_ms, "bwd_bytes": bwd_nbytes,
+          "bwd_bytes_bound_ms": bwd_bytes_ms})
+    del params, cts, gT, cnt, inputs, want, got
 
-    # 5. The CLI: the demo pair merged under the inverse of its committed
-    # offset, rendered to PNG at the default 1280x720.
-    with open(os.path.join(REPO, "tests", "data", "demo_transform.json")) as fh:
+    # 7. Photometric refinement at full width (the slice's main path): the
+    # bench cloud against its own render under a known twist of norm ~0.02,
+    # one 1280x720 camera, 11 Adam steps, each one composite_fwd and one
+    # composite_bwd launch. Each step's wall time ends at a device sync in
+    # the progress callback; the first step is the warm-up and is not timed.
+    cloud, cam = bench_cloud(dev), bench_camera(dev)
+    xi_true = torch.tensor([0.01, -0.008, 0.006, 0.008, -0.006, 0.01], device=dev)
+    moved = cloud.transform(se3.se3_exp(xi_true))
+    mstats = R.rasterize_arrays_with_stats(
+        moved.xyz, moved.covariance, moved.get_opacity[:, 0], moved.get_features,
+        cam.viewmat, cam.intrinsics, WIDTH, HEIGHT, 0, torch.zeros(3, device=dev), cfg)[3]
+    if int(mstats["live_tile_overflow"]):
+        raise AssertionError("the photometric target overflows max_live_tiles")
+    targets = photometric.render_targets(moved, [cam], config=cfg, device=dev)
+    steps = 11
+    ends = []
+
+    def step_end(_i, _loss):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+
+    reset_launches(raster_cuda)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = photometric.photometric_pose_opt(cloud, [cam], targets, steps=steps,
+                                              config=cfg, device=dev,
+                                              progress_callback=step_end)
+    launches_photo = read_launches(raster_cuda)
+    step_ms = np.diff([t0] + ends) * 1e3
+    T_true = se3.se3_exp(xi_true.double()).cpu().numpy()
+    emit({"phase": "photometric", "splats": N_SPLATS, "width": WIDTH, "height": HEIGHT,
+          "steps": steps, "warmup_step_ms": float(step_ms[0]),
+          "ms_per_step": float(step_ms[1:].mean()), "ms_per_step_min": float(step_ms[1:].min()),
+          "ms_per_step_max": float(step_ms[1:].max()), "step_ms": step_ms.tolist(),
+          "loss_history": result.loss_history,
+          "launches": launches_photo,
+          "launches_per_step": {k: v / steps for k, v in launches_photo.items()},
+          "pose_error_start": pose_error(np.eye(4), np.linalg.inv(T_true)),
+          "pose_error_end": pose_error(result.transformation, np.linalg.inv(T_true))})
+    if not np.isfinite(result.transformation).all():
+        raise AssertionError("photometric pose is not finite")
+    if not result.loss_history[-1] < result.loss_history[0]:
+        raise AssertionError(f"photometric loss did not fall: {result.loss_history}")
+    if launches_photo != {"composite_fwd": steps, "composite_bwd": steps}:
+        raise AssertionError(f"photometric launches {launches_photo}, expected {steps} each")
+    del cloud, moved, targets
+
+    # 8. The CLI: `render` of the demo pair merged under the inverse of its
+    # committed offset at the default 1280x720; then `photometric` on
+    # tests/test_e2e_cli.py's scenario (3 views at 64x64, 80 steps at lr
+    # 1e-3) from the true pose perturbed by a twist of norm ~0.02.
+    cli = [sys.executable, "-m", "gaussiansplattingregistration_tpu_torch.cli"]
+    data = os.path.join(REPO, "tests", "data")
+    with open(os.path.join(data, "demo_transform.json")) as fh:
         T_fix = np.linalg.inv(np.asarray(json.load(fh)["T_offset"], np.float64))
     with tempfile.TemporaryDirectory() as tmp:
         out_png = os.path.join(tmp, "merged.png")
         proc = subprocess.run(
-            [sys.executable, "-m", "gaussiansplattingregistration_tpu_torch.cli",
-             "render", os.path.join(REPO, "tests", "data", "demo_source.ply"), out_png,
-             "--second", os.path.join(REPO, "tests", "data", "demo_target.ply"),
-             "--transform", " ".join(repr(float(v)) for v in T_fix.reshape(-1))],
+            cli + ["render", os.path.join(data, "demo_source.ply"), out_png,
+                   "--second", os.path.join(data, "demo_target.ply"),
+                   "--transform", " ".join(repr(float(v)) for v in T_fix.reshape(-1))],
             cwd=REPO, capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:
             raise AssertionError(f"cli render failed (rc {proc.returncode}):\n{proc.stderr[-3000:]}")
         cli_out = json.loads(proc.stdout.strip().splitlines()[-1])
         check_png(out_png, WIDTH, HEIGHT)
-    emit({"phase": "cli", "rc": proc.returncode, "result": cli_out})
-    if not cli_out["mean_alpha"] > 0:
-        raise AssertionError("cli render is empty")
+        emit({"phase": "cli", "rc": proc.returncode, "result": cli_out})
+        if not cli_out["mean_alpha"] > 0:
+            raise AssertionError("cli render is empty")
 
-    # 6. Every ported kernel, its launches on the main path and its numbers.
-    emit({"kernels": [{
-        "name": "composite_fwd",
-        "route": "cuda",
-        "source": "gaussiansplattingregistration_tpu_torch/csrc/composite_fwd.cu",
-        "replaces": "gaussiansplattingregistration_tpu/ops/raster_pallas.py:173",
-        "launches": launches["composite_fwd"],
-        "max_abs_err": max(errs),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
-    }]})
+        cams_json, init_json, T_off = demo_photometric_views(tmp, 64, dev)
+        out_json = os.path.join(tmp, "t.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            cli + ["photometric", os.path.join(data, "demo_source.ply"),
+                   "--second", os.path.join(data, "demo_target.ply"),
+                   "--cameras", cams_json, "--images-path", tmp,
+                   "--init-transform", init_json, "--steps", "80", "--lr", "1e-3",
+                   "--output", out_json],
+            cwd=REPO, capture_output=True, text=True, timeout=600,
+        )
+        if proc.returncode != 0:
+            raise AssertionError(f"cli photometric failed (rc {proc.returncode}):\n"
+                                 f"{proc.stderr[-3000:]}")
+        photo_out = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(init_json) as fh:
+            err0 = pose_error(json.load(fh)["transformation"], T_off)
+        err = pose_error(photo_out["transformation"], T_off)
+        emit({"phase": "cli_photometric", "rc": proc.returncode,
+              "final_loss": photo_out["final_loss"], "steps": photo_out["steps"],
+              "pose_error_start": err0, "pose_error_end": err,
+              "seconds": time.perf_counter() - t0})
+        if not err < 2e-2:
+            raise AssertionError(f"cli photometric pose error {err} >= 2e-2")
+
+    # 9. Every ported kernel, its launches on the slice's main path (the
+    # full-width photometric run) and its numbers.
+    src = "gaussiansplattingregistration_tpu_torch/csrc/"
+    ref = "gaussiansplattingregistration_tpu/ops/raster_pallas.py:"
+    emit({"kernels": [
+        {"name": "composite_fwd", "route": "cuda", "source": src + "composite_fwd.cu",
+         "replaces": ref + "173", "launches": launches_photo["composite_fwd"],
+         "max_abs_err": max(errs), "ms": kernel_ms, "plain_ms": plain_ms,
+         "bound_ms": bound_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+         "library_ms": None},
+        {"name": "composite_bwd", "route": "cuda", "source": src + "composite_bwd.cu",
+         "replaces": ref + "270", "launches": launches_photo["composite_bwd"],
+         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+         "bound_ms": bwd_bound_ms,
+         "bound_by": "operations" if bwd_ops_ms >= bwd_bytes_ms else "bytes",
+         "library_ms": None},
+    ]})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,9 @@
-"""CLI of the torch port: `info` and `render` (more subcommands follow the
-port; see ROADMAP.md).
+"""CLI of the torch port: `info`, `render` and `photometric` (more
+subcommands follow the port; see ROADMAP.md).
 
   info          inspect a PLY (type sniffing)
   render        rasterize a cloud (or merged pair) to PNG
+  photometric   differentiable pose registration through the rasterizer
 
 Transforms are passed as 16-value row-major 4x4 or JSON files
 {"transformation": [[...]]}. `--device cuda` (the default) needs a card;
@@ -32,6 +33,15 @@ def _load_transform(spec):
         data = json.load(f)
     key = "transformation" if "transformation" in data else "result_transformation"
     return np.asarray(data[key], np.float64)
+
+
+def _save_transform(T, path, extra=None):
+    out = {"transformation": np.asarray(T).tolist()}
+    out.update(extra or {})
+    if path:
+        with open(path, "w") as f:
+            json.dump(out, f, indent=2)
+    print(json.dumps(out))
 
 
 def cmd_info(args):
@@ -153,6 +163,37 @@ def cmd_render(args):
     print(json.dumps(out))
 
 
+def cmd_photometric(args):
+    from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig
+    from gaussiansplattingregistration_tpu_torch.pipelines.evaluation import (
+        load_cameras_json,
+        load_image,
+    )
+    from gaussiansplattingregistration_tpu_torch.pipelines.photometric import (
+        photometric_pose_opt,
+    )
+    from gaussiansplattingregistration_tpu_torch.utils import io as gio
+
+    source = gio.load_gaussian_cloud(args.first, device=args.device)
+    fixed = gio.load_gaussian_cloud(args.second, device=args.device) if args.second else None
+    cameras = load_cameras_json(args.cameras, device=args.device)
+    if args.max_cameras:
+        cameras = cameras[: args.max_cameras]
+    targets = [load_image(os.path.join(args.images_path, c.image_name + ".png"))
+               for c in cameras]
+    result = photometric_pose_opt(
+        source, cameras, targets,
+        init_transform=_load_transform(args.init_transform),
+        fixed_cloud=fixed, steps=args.steps, learning_rate=args.lr,
+        ssim_weight=args.ssim_weight, config=RasterizeConfig(backend=args.backend),
+        device=args.device,
+    )
+    _save_transform(
+        result.transformation, args.output,
+        {"final_loss": result.final_loss, "steps": result.num_steps},
+    )
+
+
 def build_parser():
     p = argparse.ArgumentParser(
         prog="gsr-torch",
@@ -191,6 +232,21 @@ def build_parser():
                     help="render N turntable frames around the scene")
     sp.add_argument("--depth-output", help="also save a normalized depth map PNG")
     sp.set_defaults(fn=cmd_render)
+
+    sp = sub.add_parser("photometric", help="differentiable pose registration")
+    sp.add_argument("first", help="cloud whose pose is optimized")
+    sp.add_argument("--second", help="fixed cloud merged into the render")
+    sp.add_argument("--cameras", required=True)
+    sp.add_argument("--images-path", required=True)
+    sp.add_argument("--max-cameras", type=int)
+    sp.add_argument("--steps", type=int, default=100)
+    sp.add_argument("--lr", type=float, default=5e-3)
+    sp.add_argument("--ssim-weight", type=float, default=0.2)
+    sp.add_argument("--init-transform")
+    sp.add_argument("--output")
+    sp.add_argument("--backend", default="cuda", choices=["cuda", "torch"])
+    add_device(sp)
+    sp.set_defaults(fn=cmd_photometric)
 
     return p
 

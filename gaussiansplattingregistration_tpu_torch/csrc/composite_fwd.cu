@@ -12,11 +12,13 @@
 //   live  = the tile's chunk-granular horizon: 128 for each 128-entry chunk
 //           c with count > 128 c and some pixel still at T > tmin at its start.
 //
-// What bounds it on the card: per live (pixel, entry) pair about 20 FP32
-// operations and one exp on the SFU, against reading gT [T,10,K] once and
-// writing [T,P,5] once. At the bench scene that is ~4x more time in
-// arithmetic than in bytes, so the kernel is compute-bound: the design spends
-// no arithmetic on dead pairs.
+// What bounds it on the card: the visibility test (about 18 FP32 operations,
+// the exp on the SFU among them) per (pixel, entry) pair whose pixel is
+// still alive, and 12 more per pair it composites, against reading gT
+// [T,10,K] once and writing [T,P,5] once. At the bench scene the arithmetic
+// takes longer than the bytes (`chip_smoke.py` computes both from the
+// frame's counts), so the kernel is compute-bound: the design spends no
+// arithmetic on dead pairs.
 //
 // What the design does about it:
 // * a thread stops its own scan once its T <= tmin (later weights are zero);

@@ -1,4 +1,4 @@
-"""Tile-based 3DGS rasterizer, forward pass (torch + the CUDA compositor).
+"""Differentiable tile-based 3DGS rasterizer (torch + the CUDA compositor).
 
 Torch counterpart of `gaussiansplattingregistration_tpu/ops/rasterize.py`:
 explicit 3D covariances, RGB render mode, SH view-dependent color,
@@ -17,19 +17,26 @@ background blending, `radius_clip=3` culling. Pipeline:
    (`raster_cuda.composite_tiles`) over occupancy-ordered rows with the
    `max_live_tiles` cap and the chunk-granular live horizon; backend
    "torch" composites chunks of tiles with an exclusive log-transmittance
-   cumsum in plain torch (`_composite_chunk`, the JAX "xla" path).
+   cumsum in plain torch (`_composite_chunk`, the JAX "xla" path),
+   recomputed per chunk in the backward (`torch.utils.checkpoint`).
 
-Forward only: the composite kernel's backward is the next port slice.
+Gradients reach means, covariances, opacities and features through
+autograd: the compositor's backward is `raster_cuda`'s (the hand-written
+kernel `csrc/composite_bwd.cu` on "cuda"), and the gather's VJP lands the
+per-entry cotangents on their splats with one `index_add_` (the JAX
+package's sort-and-land transport has no counterpart).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gaussiansplattingregistration_tpu_torch.ops import math3d, raster_cuda, sh as sh_ops
 from gaussiansplattingregistration_tpu_torch.utils.device import as_tensor, resolve_device
@@ -56,15 +63,18 @@ class RasterizeConfig:
     # twin on CPU tensors (the JAX "pallas" branch); "torch": chunked plain
     # torch (the JAX "xla" branch).
     backend: str = "cuda"
-    # Backward-transport cap (ranks per tile carrying gradients); it sets
-    # the table's `live` entries and the `bwd_cap_violations` counter.
+    # Backward-transport cap: only the first KB = min(this, K) depth ranks
+    # of each tile carry gradients back to splats (`bwd_rank_cap`). It sets
+    # the table's `live` entries, the `bwd_cap_violations` counter and the
+    # gather's VJP. None = K.
     max_bwd_splats_per_tile: Optional[int] = None
     # Cap on PROCESSED tile rows ("cuda"): occupancy-ordered rows put empty
     # tiles last; rows past the cap (rounded up to 8) composite to exact
-    # background, and live tiles past it are counted in
-    # `live_tile_overflow`. None = all tiles.
+    # background and carry no gradient, and live tiles past it are counted
+    # in `live_tile_overflow`. None = all tiles.
     max_live_tiles: Optional[int] = None
-    # Backward-only (bf16 cotangent transport); kept for config parity.
+    # Round each per-entry cotangent to bf16 before it lands on its splat
+    # (the JAX package's bf16 gradient transport).
     bwd_sort_bf16: bool = False
 
     def __post_init__(self):
@@ -73,6 +83,15 @@ class RasterizeConfig:
 
 
 DEFAULT_CONFIG = RasterizeConfig()
+
+
+def bwd_rank_cap(config: RasterizeConfig) -> int:
+    """KB, the depth ranks per tile that carry gradients: the one source of
+    the table's `live`, the `bwd_cap_violations` stat and the gather VJP."""
+    K = config.max_splats_per_tile
+    if config.max_bwd_splats_per_tile is None:
+        return K
+    return min(config.max_bwd_splats_per_tile, K)
 
 
 def project_gaussians(
@@ -257,8 +276,7 @@ def _build_tile_table(
     E = n * C
 
     K = config.max_splats_per_tile
-    KB = K if config.max_bwd_splats_per_tile is None else min(
-        config.max_bwd_splats_per_tile, K)
+    KB = bwd_rank_cap(config)
     # Tile runs are contiguous in the sorted order: bounds[t] is run t's
     # start (bounds[num_tiles] the start of the invalid run).
     bounds = torch.searchsorted(
@@ -307,20 +325,50 @@ def _build_tile_table(
     )
 
 
+class _GatherEntries(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, packed, table, C, k_bwd, sort_bf16):
+        filled = table >= 0
+        splat = torch.where(filled, torch.div(table, C, rounding_mode="floor"), 0).long()
+        g = packed[splat] * filled.to(packed.dtype)[..., None]
+        ctx.save_for_backward(table)
+        ctx.C, ctx.k_bwd, ctx.sort_bf16, ctx.n = C, k_bwd, sort_bf16, packed.shape[0]
+        # A fresh tensor, so the caller may shift the tile origins in place.
+        return g.permute(0, 2, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, ct):
+        (table,) = ctx.saved_tensors
+        eid = table[:, :ctx.k_bwd]                                   # [T, KB]
+        rows = ct[:, :, :ctx.k_bwd].permute(0, 2, 1)                 # [T, KB, F]
+        if ctx.sort_bf16:
+            rows = rows.to(torch.bfloat16).to(ct.dtype)
+        filled = eid >= 0
+        d_packed = torch.zeros((ctx.n, ct.shape[1]), dtype=ct.dtype, device=ct.device)
+        d_packed.index_add_(0, torch.div(eid[filled], ctx.C, rounding_mode="floor").long(),
+                            rows[filled])
+        return d_packed, None, None, None, None
+
+
 def gather_entries(
     packed: torch.Tensor,        # [N, F]
     table: torch.Tensor,         # [T, K] ENTRY ids (splat * C + c) or -1
     C: int,
+    k_bwd: Optional[int] = None,
+    sort_bf16: bool = False,
 ) -> torch.Tensor:
     """Gather per-splat rows [N, F] into the CHANNEL-MAJOR tile table layout
     [T, F, K] the composite kernel reads; empty slots are zero (so their
-    opacity is zero). Forward only: the JAX package's gradient-transport
-    arguments (`sorted_entry`, `live`, `k_bwd`, `sort_bf16`) come with the
-    backward, in the next port slice."""
-    filled = table >= 0
-    splat = torch.where(filled, torch.div(table, C, rounding_mode="floor"), 0).long()
-    g = packed[splat] * filled.to(packed.dtype)[..., None]
-    return g.permute(0, 2, 1).contiguous()
+    opacity is zero).
+
+    The VJP takes the cotangent [T, F, K], keeps the first `k_bwd` depth
+    ranks of each row (None = all K), rounds each entry's cotangent to bf16
+    and back when `sort_bf16` is set, and adds the filled slots' rows onto
+    their splats (`splat = table // C`) with one atomic `index_add_` — the
+    counterpart of the JAX package's sort-and-land transport. Only the rows
+    of `table` land: a tile row left out (past `max_live_tiles`) gives its
+    splats no gradient and touches no other splat."""
+    return _GatherEntries.apply(packed, table, C, k_bwd, sort_bf16)
 
 
 def _composite_chunk(
@@ -423,12 +471,15 @@ def rasterize_tile_slab(
         [means2d, conic, op[:, None], colors, depth[:, None]], dim=-1
     )                                                         # [N, 10]
     C = config.max_tiles_per_splat
+    KB = bwd_rank_cap(config)
     if config.backend == "cuda":
         # Occupancy-ordered rows put empty tiles last: rows past the cap
         # are not gathered or composited and stay background.
         T_live = _row_cap(config, num_tiles)
-        gT = gather_entries(packed, table[:T_live], C)        # [T_live, 10, K]
-        # Tile-LOCAL means keep the quadratic form exact in f32.
+        gT = gather_entries(packed, table[:T_live], C, KB,
+                            config.bwd_sort_bf16)             # [T_live, 10, K]
+        # Tile-LOCAL means keep the quadratic form exact in f32 (in place:
+        # the gather returns a fresh tensor).
         gT[:, 0:2, :] -= tile_origin[:T_live, :, None]
         rgb, alpha, depthmap, live = raster_cuda.composite_tiles(
             gT, counts[:T_live, None].to(means2d.dtype), ts, config
@@ -442,20 +493,23 @@ def rasterize_tile_slab(
         inv_order = torch.argsort(order.long())
         rgb, alpha, depthmap = rgb[inv_order], alpha[inv_order], depthmap[inv_order]
     else:
-        g = gather_entries(packed, table, C).permute(0, 2, 1)  # [T, K, 10]
+        g = gather_entries(packed, table, C, KB,
+                           config.bwd_sort_bf16).permute(0, 2, 1)  # [T, K, 10]
         filled = table >= 0
         B = config.tile_chunk
+        # Under autograd each chunk is recomputed in the backward instead of
+        # keeping its [B, K, P] intermediates (the JAX jax.checkpoint).
+        composite = _composite_chunk
+        if g.requires_grad:
+            composite = functools.partial(checkpoint, _composite_chunk, use_reentrant=False)
         parts = [
-            _composite_chunk(tile_origin[s:s + B], g[s:s + B], filled[s:s + B], config)
+            composite(tile_origin[s:s + B], g[s:s + B], filled[s:s + B], config)
             for s in range(0, num_tiles, B)
         ]
         rgb, alpha, depthmap = (torch.cat(p) for p in zip(*parts))
         live = None   # composites every occupied slot
 
     if with_stats:
-        K = config.max_splats_per_tile
-        KB = config.max_bwd_splats_per_tile
-        KB = K if KB is None else min(KB, K)
         # Without a horizon output ("torch") report the conservative bound,
         # occupancy.
         effective = counts if live is None else torch.minimum(counts, live.to(torch.int32))
@@ -561,6 +615,9 @@ def rasterize_arrays_with_stats(
       (chunk-granular; occupancy on "torch").
     - max_count: maximum post-truncation tile occupancy.
     - live_tile_overflow ("cuda" only): live tiles past `max_live_tiles`.
+      They render as background and their splats get no gradient from
+      them; no other splat's gradient changes (the JAX package's transport
+      misaligns every splat's gradient there, so parity holds only at 0).
 
     Zero counters == the static bounds were exact for this scene/view.
     """

@@ -1,4 +1,9 @@
-"""Minimal PNG writer (stdlib zlib + struct): 8-bit gray or RGB, no filter."""
+"""Minimal PNG codec (stdlib zlib + struct).
+
+The writer stores 8-bit gray or RGB with no row filter. The reader takes
+8-bit gray, gray+alpha, RGB and RGBA, non-interlaced, with all five row
+filters (None, Sub, Up, Average, Paeth): what PIL and most encoders write.
+"""
 
 from __future__ import annotations
 
@@ -8,6 +13,8 @@ import zlib
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# Color type -> channels, for 8-bit samples.
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -30,3 +37,73 @@ def write_png(path: str, img: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
                 + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(data: bytes, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters of decompressed scanlines -> uint8 [H, W*bpp]."""
+    stride = w * bpp
+    rows = np.frombuffer(data, np.uint8)
+    if rows.size != h * (stride + 1):
+        raise ValueError(f"PNG image data has {rows.size} bytes, expected {h * (stride + 1)}")
+    rows = rows.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.int32)
+    prior = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype, line = rows[y, 0], rows[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:      # Sub: running sum along each channel
+            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) & 0xFF
+        elif ftype == 2:      # Up
+            cur = (line + prior) & 0xFF
+        elif ftype in (3, 4):  # Average, Paeth: sequential along the row
+            cur = line.copy()
+            left = np.zeros(bpp, np.int32)
+            up_left = np.zeros(bpp, np.int32)
+            for x in range(0, stride, bpp):
+                up = prior[x:x + bpp]
+                pred = (left + up) >> 1 if ftype == 3 else _paeth(left, up, up_left)
+                left = (cur[x:x + bpp] + pred) & 0xFF
+                cur[x:x + bpp] = left
+                up_left = up
+        else:
+            raise ValueError(f"PNG row {y}: unknown filter type {ftype}")
+        out[y] = cur
+        prior = cur
+    return out.astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read an 8-bit, non-interlaced gray, gray+alpha, RGB or RGBA PNG as
+    uint8 [H, W] (gray) or [H, W, C]."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+        pos += 12 + length
+    if header is None:
+        raise ValueError(f"{path}: PNG has no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = header
+    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
+        raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, color type {ctype}, "
+                         f"interlace {interlace}); 8-bit non-interlaced gray/RGB(A) only")
+    ch = _CHANNELS[ctype]
+    img = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch).reshape(h, w, ch)
+    return img[..., 0] if ch == 1 else img

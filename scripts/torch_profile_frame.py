@@ -1,10 +1,12 @@
-"""Where the forward frame's time goes on the card (PyTorch/CUDA port).
+"""Where a frame's time goes on the card (PyTorch/CUDA port).
 
 Times each stage of `rasterize_arrays(backend="cuda")` on the bench scene
 (chip_smoke.bench_scene: 1M splats, 1280x720) with CUDA events, then traces
-a few frames with torch.profiler and prints the top kernels by device time
-and the device's busy share of the host wall time per frame. One JSON line per
-result; with a directory argument the chrome trace is written there too.
+a few frames with torch.profiler, forward alone and forward + backward
+(`torch.autograd.grad` of sum(rgb) w.r.t. means, cov, opacity, features),
+and prints the top kernels by device time and the device's busy share of
+the host wall time per frame. One JSON line per result; with a directory
+argument the chrome traces are written there too.
 
     python3 scripts/torch_profile_frame.py [TRACE_DIR]   # from the repo root, one GPU
 """
@@ -26,6 +28,47 @@ sys.path.insert(0, REPO)
 from chip_smoke import bench_scene, cuda_ms, kernel_inputs  # noqa: E402
 from gaussiansplattingregistration_tpu_torch.ops import raster_cuda  # noqa: E402
 from gaussiansplattingregistration_tpu_torch.ops import rasterize as R  # noqa: E402
+
+
+def trace(frame, name: str, n_frames: int = 5) -> dict:
+    """Host wall time per frame (ends in a synchronize), then a
+    torch.profiler trace of `n_frames` frames: device time by kernel and
+    the device's busy share of the wall time."""
+    frame()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        frame()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 10
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_frames):
+            frame()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    if len(sys.argv) > 1:
+        os.makedirs(sys.argv[1], exist_ok=True)
+        prof.export_chrome_trace(os.path.join(sys.argv[1], f"torch_{name}_trace.json"))
+    # Device-side events only (the kernels and copies themselves), so the
+    # aten ops that launched them are not counted twice.
+    rows = [(ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    kernels_ms = sum(r[0] for r in rows) / 1e3 / n_frames
+    return {
+        "host_wall_ms_per_frame": wall_ms,
+        "traced_ms_per_frame": traced_ms / n_frames,
+        "device_kernel_ms_per_frame": kernels_ms,
+        "device_busy_share": kernels_ms / wall_ms,
+        "device_ops_per_frame": sum(r[2] for r in rows) / n_frames,
+        "top_kernels_ms_per_frame": [
+            {"kernel": key[:100], "ms": us / 1e3 / n_frames, "calls_per_frame": count / n_frames}
+            for us, key, count in rows[:25]
+        ],
+    }
 
 
 def main() -> int:
@@ -58,41 +101,15 @@ def main() -> int:
     stage_ms["rest_of_frame"] = frame_ms - sum(stage_ms.values())
     print(json.dumps({"card": card, "frame_ms": frame_ms, "stage_ms": stage_ms}), flush=True)
 
-    # Host wall time per frame (ends in a synchronize), for the idle share.
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        R.rasterize_arrays(*args, cfg)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 10
+    params = [a.detach().clone().requires_grad_(True) for a in args[:4]]
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    n_frames = 5
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_frames):
-            R.rasterize_arrays(*args, cfg)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
-    if len(sys.argv) > 1:
-        os.makedirs(sys.argv[1], exist_ok=True)
-        prof.export_chrome_trace(os.path.join(sys.argv[1], "torch_frame_trace.json"))
-    # Device-side events only (the kernels and copies themselves), so the
-    # aten ops that launched them are not counted twice.
-    rows = [(ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
-    rows.sort(reverse=True)
-    kernels_ms = sum(r[0] for r in rows) / 1e3 / n_frames
-    print(json.dumps({
-        "card": card, "host_wall_ms_per_frame": wall_ms,
-        "traced_ms_per_frame": traced_ms / n_frames,
-        "device_kernel_ms_per_frame": kernels_ms,
-        "device_busy_share": kernels_ms / wall_ms,
-        "top_kernels_ms_per_frame": [
-            {"kernel": key[:100], "ms": us / 1e3 / n_frames, "calls_per_frame": count / n_frames}
-            for us, key, count in rows[:25]
-        ],
-    }), flush=True)
+    def fwd_bwd():
+        rgb = R.rasterize_arrays(*params, *args[4:], cfg)[0]
+        return torch.autograd.grad(rgb.sum(), params)
+
+    for name, frame in (("forward", lambda: R.rasterize_arrays(*args, cfg)),
+                        ("forward_backward", fwd_bwd)):
+        print(json.dumps({"card": card, "frame": name, **trace(frame, name)}), flush=True)
     return 0
 
 

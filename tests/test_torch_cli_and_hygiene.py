@@ -5,8 +5,10 @@ import argparse
 import ast
 import json
 import os
+import struct
 import subprocess
 import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -17,8 +19,9 @@ from gaussiansplattingregistration_tpu.cli.main import cmd_info as jax_cmd_info
 from gaussiansplattingregistration_tpu_torch.cli.main import main as port_main
 from gaussiansplattingregistration_tpu_torch.models.camera import Camera
 from gaussiansplattingregistration_tpu_torch.ops import rasterize as TR
+from gaussiansplattingregistration_tpu_torch.pipelines.evaluation import load_image
 from gaussiansplattingregistration_tpu_torch.utils import io as tio
-from gaussiansplattingregistration_tpu_torch.utils.png import write_png
+from gaussiansplattingregistration_tpu_torch.utils.png import read_png, write_png
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "tests", "data")
@@ -85,6 +88,32 @@ def assert_pngs_close(path, ref, size):
         assert np.asarray(im).any()
 
 
+def test_cli_photometric_prints_jax_keys_and_loss_falls(tmp_path, capsys):
+    """The demo-pair photometric scenario (chip_smoke's, at 32x32): the
+    port's CLI prints the JAX CLI's keys, writes the same JSON to
+    --output, and its loss falls over three steps."""
+    import chip_smoke
+    from gaussiansplattingregistration_tpu.cli.main import _save_transform as jax_save
+
+    cams_json, init_json, T_off = chip_smoke.demo_photometric_views(str(tmp_path), 32, "cpu")
+    losses = []
+    for steps in (1, 3):
+        out = tmp_path / f"t{steps}.json"
+        port_main(["photometric", os.path.join(DATA, "demo_source.ply"),
+                   "--second", os.path.join(DATA, "demo_target.ply"),
+                   "--cameras", cams_json, "--images-path", str(tmp_path),
+                   "--init-transform", init_json, "--steps", str(steps),
+                   "--output", str(out), "--device", "cpu"])
+        got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert json.loads(out.read_text()) == got and got["steps"] == steps
+        losses.append(got["final_loss"])
+    jax_save(np.eye(4), None, {"final_loss": 0.0, "steps": 3})
+    assert set(got) == set(json.loads(capsys.readouterr().out))
+    assert losses[1] < losses[0]
+    assert np.asarray(got["transformation"]).shape == (4, 4)
+    assert chip_smoke.pose_error(got["transformation"], T_off) < 0.05
+
+
 def test_cli_info_matches_jax(capsys):
     path = os.path.join(DATA, "demo_target.ply")
     port_main(["info", path, "--device", "cpu"])
@@ -101,6 +130,60 @@ def test_png_writer_roundtrip(tmp_path, rng, shape):
     write_png(str(path), img)
     with Image.open(path) as im:
         np.testing.assert_array_equal(np.asarray(im), img)
+    np.testing.assert_array_equal(read_png(str(path)), img)
+
+
+def _filtered_png(path, img, color_type):
+    """Encode 8-bit `img` with row filters cycling through all five types
+    (None, Sub, Up, Average, Paeth), independently of the port's codec."""
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int32)
+    rows = []
+    for y in range(h):
+        ft = y % 5
+        cur = x[y]
+        up = x[y - 1] if y else np.zeros_like(cur)
+        left = np.concatenate([np.zeros(c, np.int32), cur[:-c]])
+        up_left = np.concatenate([np.zeros(c, np.int32), up[:-c]])
+        if ft == 4:
+            p = left + up - up_left
+            pa, pb, pc = abs(p - left), abs(p - up), abs(p - up_left)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+        else:
+            pred = [0 * cur, left, up, (left + up) // 2][ft]
+        rows.append(bytes([ft]) + ((cur - pred) % 256).astype(np.uint8).tobytes())
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(b"".join(rows))) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("mode", ["RGB", "RGBA", "L"])
+def test_png_reader_matches_pil(tmp_path, rng, mode):
+    """The stdlib reader against PIL's decoder: on a file with every row
+    filter, and on PIL's own encoding; load_image as PIL's RGB conversion."""
+    c = {"RGB": 3, "RGBA": 4, "L": 1}[mode]
+    img = rng.integers(0, 256, size=(23, 17, c), dtype=np.uint8)
+    img[:, :8] = 200                      # flat runs, where the filters differ most
+    ours = tmp_path / "filtered.png"
+    _filtered_png(ours, img, {"RGB": 2, "RGBA": 6, "L": 0}[mode])
+    pils = tmp_path / "pil.png"
+    Image.fromarray(img[..., 0] if c == 1 else img, mode).save(pils)
+    for path in (ours, pils):
+        with Image.open(path) as im:
+            want = np.asarray(im)
+            want_rgb = np.asarray(im.convert("RGB"), np.float32) / 255.0
+        np.testing.assert_array_equal(want, img[..., 0] if c == 1 else img)
+        np.testing.assert_array_equal(read_png(str(path)), want)
+        np.testing.assert_array_equal(load_image(str(path)), want_rgb)
+    with pytest.raises(ValueError, match="not a PNG"):
+        (tmp_path / "bad.png").write_bytes(b"GIF89a")
+        read_png(str(tmp_path / "bad.png"))
 
 
 def _imported_modules(path):
@@ -126,6 +209,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     banned = ("jax", "jaxlib", "gaussiansplattingregistration_tpu")
     sources = list(_port_sources())
     assert len(sources) > 15
+    for mod in (("ops", "se3.py"), ("ops", "metrics.py"), ("pipelines", "photometric.py"),
+                ("pipelines", "evaluation.py"), ("utils", "png.py")):
+        assert os.path.join(PORT, *mod) in sources
     offenders = [
         (os.path.relpath(path, REPO), mod)
         for path in sources

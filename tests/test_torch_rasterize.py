@@ -119,23 +119,28 @@ def test_composite_reference_matches_pallas(rng, K, fixed):
 
 
 def test_composite_tiles_wrapper_on_cpu(rng):
-    """On a CPU tensor the wrapper runs the twin and launches nothing; the
-    backward raises instead of returning wrong gradients; the launcher
-    refuses a CPU tensor."""
+    """On a CPU tensor the wrapper runs the twins, forward and backward, and
+    launches nothing; the launchers refuse a CPU tensor."""
     gT, cnt = random_tiles(rng, [5, 64, 0, 30, 12, 1, 64, 7], 64)
     gT = torch.as_tensor(gT, dtype=torch.float32).requires_grad_(True)
     cnt = torch.as_tensor(cnt)
     cfg = TR.RasterizeConfig()
-    before = raster_cuda.composite_tiles.launches
+    before = (raster_cuda.composite_tiles.launches, raster_cuda.composite_tiles_bwd.launches)
     out = raster_cuda.composite_tiles(gT, cnt, 16, cfg)
     ref = raster_cuda.composite_tiles_reference(gT.detach(), cnt, 16, cfg)
     for a, b in zip(out, ref):
         assert torch.equal(a.detach(), b)
-    assert raster_cuda.composite_tiles.launches == before
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        out[0].sum().backward()
+    g_rgb = torch.as_tensor(rng.normal(size=out[0].shape), dtype=torch.float32)
+    (d_gT,) = torch.autograd.grad((out[0] * g_rgb).sum(), gT)
+    zeros = torch.zeros(out[1].shape)
+    assert torch.equal(d_gT, raster_cuda.composite_tiles_reference_bwd(
+        gT.detach(), cnt, g_rgb, zeros, zeros, 16, cfg))
+    assert (raster_cuda.composite_tiles.launches,
+            raster_cuda.composite_tiles_bwd.launches) == before
     with pytest.raises(ValueError, match="CUDA tensor"):
         raster_cuda._launch(gT.detach(), cnt, 16, cfg)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        raster_cuda._launch_bwd(gT.detach(), cnt, g_rgb, zeros, zeros, 16, cfg)
 
 
 # ----------------------------------------------------- (b) tile table
