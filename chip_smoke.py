@@ -1,7 +1,11 @@
 """On-card smoke check of the PyTorch/CUDA port.
 
 Builds every CUDA kernel of the port from the checkout, holds each against
-its plain-torch twin on the card, drives the port's main paths at the bench
+its plain-torch twin on the card (on seeded tiles, on adversarial tiles that
+probe the kernels' footprint culling, and at the bench frame's shapes; the
+backward launched twice must give the same bits) and the culling boxes
+the card computes against their plain formula, drives the port's main
+paths at the bench
 scene's full width (1M splats at 1280x720): the forward render, the
 gradients of the whole rasterizer against the plain-torch backend,
 fwd+bwd timing, and photometric pose refinement; then the `render` and
@@ -37,10 +41,13 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # FP32 operations per (pixel, entry) pair, counted once from the kernels'
 # formulas (csrc/composite_fwd.cu, csrc/composite_bwd.cu), an FMA as two and
-# an exp, a division, a compare or a select as one. Every pair whose pixel
-# is still alive (T > tmin before the entry) needs the visibility test: dx
-# and dy (2), sigma (9), its clamp at 0 and the exp (2), raw alpha and the
-# alpha_max clamp (2), the alpha_clip, sigma and T tests (3).
+# an exp, a division, a compare or a select as one. A pair that is composited
+# needs the visibility test: dx and dy (2), sigma (9), its clamp at 0 and the
+# exp (2), raw alpha and the alpha_max clamp (2), the alpha_clip, sigma and T
+# tests (3). The bounds charge the whole formula to the visible pairs only:
+# how many invisible pairs a kernel still tests depends on its design (the
+# culled kernels test the `candidate` pairs). A bound that charges the test
+# to every alive pair is still printed, as `alive_ops_bound_ms`.
 OPS_TEST = 18
 # A pair the forward composites (visible) adds in the forward: w (1), the
 # transmittance update (2), the alpha, rgb and depth sums (9).
@@ -71,6 +78,27 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Mean device time of one launch of the CUDA kernel named `kernel`,
+    from a torch.profiler trace of `iters` calls of `fn`: the kernel's own time,
+    without the host's launch gaps, which a fast kernel's wrapper can
+    exceed."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA and kernel in ev.key]
+    if len(evs) != 1 or not evs[0].count:
+        raise AssertionError(f"{kernel}: {len(evs)} kernels of that name in the trace")
+    # Per traced launch: a trace may drop a few of the `iters` launches.
+    return evs[0].self_device_time_total / evs[0].count / 1e3
 
 
 def max_errs(got, want):
@@ -105,6 +133,148 @@ def random_tiles(rng, counts, K: int, device):
     g *= (np.arange(K)[None, :] < np.asarray(counts)[:, None])[:, None, :]
     cnt = torch.tensor(counts, dtype=torch.float32, device=device)[:, None]
     return torch.tensor(g, dtype=torch.float32, device=device), cnt
+
+
+def adversarial_tiles(rng, offsets, device, K: int = 64):
+    """[16, 10, K] tiles that probe the kernels' footprint culling
+    (csrc/tile_footprint.cuh), four tiles of each kind:
+    0-3  each entry puts one pixel centre at sigma = s_max (1 + r), with
+         s_max = ln(op / alpha_clip) the visibility edge and r cycling
+         through `offsets`; every eighth conic a needle (|corr| 0.995);
+    4-7  opacity at alpha_clip, one f32 step below and one above, the mean
+         on a pixel centre;
+    8-11 conics that are not positive definite (indefinite, a < 0, a = b = 0,
+         det = 0, negative definite), means off the grid so that no pixel
+         centre has |sigma| < 1e-3;
+    12-15 means off the tile with footprints reaching in, half of them with
+         an edge pixel at the visibility edge.
+    Counts are K, except tile 1 (40) and tile 13 (17); slots past them are
+    zero. Returns (gT, counts [16, 1]) on `device`."""
+    f32 = np.float32
+    clip = f32(1.0 / 255.0)
+    centres = np.stack(np.meshgrid(np.arange(16) + 0.5, np.arange(16) + 0.5), -1).reshape(-1, 2)
+
+    def pd_conic(lo, hi, corr):
+        vx, vy = rng.uniform(lo, hi, 2)
+        cov = corr * np.sqrt(vx * vy)
+        det = vx * vy - cov * cov
+        return vy / det, -cov / det, vx / det
+
+    def sigma(mean, a, b, c):
+        d = centres - np.asarray(mean, np.float64)
+        return 0.5 * (a * d[:, 0] ** 2 + c * d[:, 1] ** 2) + b * d[:, 0] * d[:, 1]
+
+    def at_edge(pixel, u, a, b, c, op, r):
+        """The mean at which `pixel` sits at sigma = s_max (1 + r) along u."""
+        a, b, c, op = (float(f32(v)) for v in (a, b, c, op))
+        s = np.log(op / float(clip))
+        q = 0.5 * (a * u[0] ** 2 + 2 * b * u[0] * u[1] + c * u[1] ** 2)
+        return np.asarray(pixel) + np.sqrt(s * (1 + r) / q) * np.asarray(u)
+
+    rows = []
+    for t in range(16):
+        kind = t // 4
+        for k in range(K):
+            if kind == 0:
+                corr = rng.choice([-0.995, 0.995]) if k % 8 == 0 else rng.uniform(-0.9, 0.9)
+                a, b, c = pd_conic(0.5, 30, corr)
+                op = rng.uniform(0.05, 0.5)
+                th = rng.uniform(0, 2 * np.pi)
+                mean = at_edge(centres[rng.integers(256)], (np.cos(th), np.sin(th)),
+                               a, b, c, op, offsets[k % len(offsets)])
+            elif kind == 1:
+                a, b, c = pd_conic(0.5, 30, rng.uniform(-0.9, 0.9))
+                op = (clip, np.nextafter(clip, f32(0)), np.nextafter(clip, f32(1)))[k % 3]
+                mean = centres[rng.integers(256)]
+            elif kind == 2:
+                op = rng.uniform(0.2, 0.6)
+                while True:
+                    form = k % 5
+                    a, c = rng.uniform(0.05, 1.0, 2)
+                    if form == 0:
+                        b = rng.choice([-1, 1]) * rng.uniform(1.2, 2.0) * np.sqrt(a * c)
+                    elif form == 1:
+                        a, b = -a, rng.uniform(-0.3, 0.3)
+                    elif form == 2:
+                        a, b = 0.0, 0.0
+                    elif form == 3:
+                        a = c
+                        b = a
+                    else:
+                        a, c, b = -a, -c, 0.0
+                    mean = rng.uniform(0, 16, 2)
+                    a, b, c = float(f32(a)), float(f32(b)), float(f32(c))
+                    if np.abs(sigma(f32(mean), a, b, c)).min() > 1e-3:
+                        break
+            else:
+                a, b, c = pd_conic(20, 300, rng.uniform(-0.8, 0.8))
+                op = rng.uniform(0.2, 0.9)
+                side = rng.integers(4)
+                normal = ((-1, 0), (1, 0), (0, -1), (0, 1))[side]
+                if k % 2:
+                    along = rng.uniform(0, 16)
+                    depth_out = rng.uniform(1, 30)
+                    mean = {0: (-depth_out, along), 1: (16 + depth_out, along),
+                            2: (along, -depth_out), 3: (along, 16 + depth_out)}[side]
+                else:
+                    i = rng.integers(16) + 0.5
+                    pixel = {0: (0.5, i), 1: (15.5, i), 2: (i, 0.5), 3: (i, 15.5)}[side]
+                    th = np.arctan2(normal[1], normal[0]) + rng.uniform(-1, 1)
+                    mean = at_edge(pixel, (np.cos(th), np.sin(th)), a, b, c, op,
+                                   offsets[(k // 2) % len(offsets)])
+            rows.append([mean[0], mean[1], a, b, c, op, *rng.uniform(0, 1, 3),
+                         rng.uniform(1, 5)])
+    g = np.ascontiguousarray(np.asarray(rows, np.float64).reshape(16, K, 10)
+                             .transpose(0, 2, 1), dtype=np.float32)
+    counts = np.full(16, K)
+    counts[1], counts[13] = 40, 17
+    g *= (np.arange(K)[None, :] < counts[:, None])[:, None, :]
+    cnt = torch.tensor(counts, dtype=torch.float32, device=device)[:, None]
+    return torch.tensor(g, device=device), cnt
+
+
+def footprint_check(dev) -> dict:
+    """The culling boxes the card computes (csrc/tile_footprint.cuh, read
+    back through `raster_cuda.footprint_boxes`) on adversarial tiles whose
+    boundary pixels sit 1e-6 inside, on and 1e-6 outside the visibility
+    edge: equal to the plain formula's boxes rounded outward to f32 within
+    one f32 step (the margin is ~1e-3 of an extent, so a header without it
+    is caught), with the same infinite edges; and every pair the twin's math
+    on the card finds visible inside its entry's box and on its warp's list.
+    Raises on a mismatch."""
+    from gaussiansplattingregistration_tpu_torch.ops import raster_cuda as RC
+    from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig
+
+    cfg = RasterizeConfig()
+    gT, cnt = adversarial_tiles(np.random.default_rng(5), (-1e-6, 0.0, 1e-6), dev)
+    card = RC.footprint_boxes(gT, cfg)
+    torch.cuda.synchronize()
+    want = RC.footprint_boxes(gT.cpu(), cfg)
+    got = card.cpu()
+    finite = torch.isfinite(want)
+    same_inf = bool(torch.equal(torch.isfinite(got), finite)
+                    and torch.equal(got[~finite], want[~finite]))
+    step = torch.from_numpy(np.spacing(np.abs(want.numpy()))).double()
+    steps_off = float(((got.double() - want.double()).abs() / step)[finite & torch.isfinite(got)]
+                      .max())
+    px, py = RC._pixel_centres(16, gT)
+    _, in_count = RC._in_count(cnt, gT.shape[0], gT.shape[2], dev)
+    _, _, sigma, _, _, alpha = RC._chunk_terms(gT, px, py, in_count, cfg)
+    vis = alpha > 0
+    b = card.double()
+    inside = ((b[:, None, 0] <= px) & (px <= b[:, None, 1])
+              & (b[:, None, 2] <= py) & (py <= b[:, None, 3]))
+    outside = int((vis & ~inside).sum())
+    unlisted = int((vis & ~RC.warp_candidates(b, 16)).sum())
+    edge = torch.log(gT[:, None, 5, :].double() / float(np.float32(cfg.alpha_clip)))
+    near_edge = int((vis & ((sigma.double() / edge - 1).abs() < 1e-5)).sum())
+    rec = {"boxes": int(finite[:, 0].numel()), "finite_boxes": int(finite[:, 0].sum()),
+           "max_f32_steps_off": steps_off, "infinite_edges_equal": same_inf,
+           "visible_pairs": int(vis.sum()), "visible_within_1e-5_of_edge": near_edge,
+           "visible_outside_box": outside, "visible_off_warp_list": unlisted}
+    if not (same_inf and steps_off <= 1.0 and outside == 0 and unlisted == 0 and near_edge):
+        raise AssertionError(f"the card's culling boxes disagree with the formula: {rec}")
+    return rec
 
 
 def check_png(path: str, width: int, height: int) -> None:
@@ -261,18 +431,21 @@ def kernel_inputs(args, cfg):
 def pair_counts(gT, cnt, ts: int, config, tiles_per_step: int = 256) -> dict:
     """The compositor's data-dependent work on (gT, cnt), counted over
     (pixel, entry) pairs with the entry inside its tile's count: `alive`,
-    the pixel's transmittance before the entry above transmittance_min (the
-    pairs a kernel must test); `visible`, those of them it composites;
-    `clamped`, visible pairs whose raw alpha reaches alpha_max. The
-    transmittance is the forward twin's."""
+    the pixel's transmittance before the entry above transmittance_min;
+    `candidate`, alive pairs whose entry is on the list of the pixel's warp
+    (`raster_cuda.entry_footprints` and the kernels' warp layout): the pairs
+    the culled kernels test; `visible`, the pairs composited; `clamped`,
+    visible pairs whose raw alpha reaches alpha_max. The transmittance is
+    the forward twin's."""
     from gaussiansplattingregistration_tpu_torch.ops import raster_cuda as RC
 
     K, S = gT.shape[2], RC._CHUNK
     px, py = RC._pixel_centres(ts, gT)
-    n = {"alive": 0, "visible": 0, "clamped": 0}
+    n = {"alive": 0, "candidate": 0, "visible": 0, "clamped": 0}
     for t0 in range(0, gT.shape[0], tiles_per_step):
         g = gT[t0:t0 + tiles_per_step]
         _, in_count = RC._in_count(cnt[t0:t0 + tiles_per_step], g.shape[0], K, g.device)
+        listed = RC.warp_candidates(RC.entry_footprints(g, config), ts)   # [t, P, K]
         carry = torch.ones((g.shape[0], ts * ts), dtype=g.dtype, device=g.device)
         for c0 in range(0, K, S):
             inc = in_count[:, c0:c0 + S]
@@ -283,6 +456,7 @@ def pair_counts(gT, cnt, ts: int, config, tiles_per_step: int = 256) -> dict:
                 & inc[:, None, :]
             visible = alive & (alpha > 0)
             n["alive"] += int(alive.sum())
+            n["candidate"] += int((alive & listed[:, :, c0:c0 + S]).sum())
             n["visible"] += int(visible.sum())
             n["clamped"] += int((visible & (raw >= config.alpha_max)).sum())
             carry = carry * torch.exp(cum[:, :, -1])
@@ -353,39 +527,55 @@ def main() -> int:
                         if "registers" in ln or "smem" in ln or "spill" in ln]
                     for k, v in _build.build_logs.items()}})
 
-    # 3. Kernels vs twins on seeded tiles. Forward tolerances: rgb/alpha
-    # 1e-5 and depth 1e-4 (depths reach 5); `live` exactly. The kernel keeps
-    # T as a running product, the twin as exp(cumsum(log1p(-alpha))): they
-    # differ by rounding only. Backward: check_bwd, on seeded cotangents.
+    # 3. Kernels vs twins on seeded tiles, then on adversarial tiles that
+    # probe the footprint culling (boundary pairs 1e-3 inside and outside
+    # the visibility edge, so that f32 rounding on the card and on the host
+    # cannot flip them); then the card's boxes themselves, at 1e-6 from the
+    # edge (`footprint_check`). Forward tolerances: rgb/alpha 1e-5 and depth 1e-4
+    # (depths reach 5); `live` exactly. The kernel keeps T as a running
+    # product, the twin as exp(cumsum(log1p(-alpha))): they differ by
+    # rounding only. Backward: check_bwd, on seeded cotangents, from the
+    # forward kernel's outputs; a second launch must give the same bits.
     cfg = R.RasterizeConfig()
     rng = np.random.default_rng(0)
+    tile_sets = []
     for K, fixed in ((384, [0, 1, 127, 128, 129, 384]), (64, [0, 1, 63, 64])):
         counts = fixed + list(rng.integers(0, K + 1, 64 - len(fixed)))
-        gT, cnt = random_tiles(rng, counts, K, dev)
+        tile_sets.append((f"seeded, K={K}", *random_tiles(rng, counts, K, dev)))
+    tile_sets.append(("adversarial", *adversarial_tiles(rng, (-1e-3, 1e-3), dev)))
+    for where, gT, cnt in tile_sets:
+        T0, K = gT.shape[0], gT.shape[2]
         got = raster_cuda.composite_tiles(gT, cnt, 16, cfg)
         torch.cuda.synchronize()
         want = raster_cuda.composite_tiles_reference(gT, cnt, 16, cfg)
         errs, live_eq = max_errs(got, want)
-        emit({"phase": "kernel_vs_twin", "tiles": 64, "K": K,
+        pairs = pair_counts(gT, cnt, 16, cfg)
+        emit({"phase": "kernel_vs_twin", "tiles": where, "K": K,
               "max_abs_err": {"rgb": errs[0], "alpha": errs[1], "depth": errs[2]},
-              "live_equal": live_eq})
+              "live_equal": live_eq, "pairs": pairs})
         if not (errs[0] <= 1e-5 and errs[1] <= 1e-5 and errs[2] <= 1e-4 and live_eq):
-            raise AssertionError(f"composite kernel disagrees with its twin at K={K}")
+            raise AssertionError(f"composite kernel disagrees with its twin ({where})")
 
         cts = [torch.tensor(rng.normal(size=s), dtype=torch.float32, device=dev)
-               for s in ((64, 256, 3), (64, 256), (64, 256))]
-        d_got = raster_cuda.composite_tiles_bwd(gT, cnt, *cts, 16, cfg)
+               for s in ((T0, 256, 3), (T0, 256), (T0, 256))]
+        d_got = raster_cuda.composite_tiles_bwd(gT, cnt, *cts, 16, cfg, fwd_out=got)
+        d_again = raster_cuda.composite_tiles_bwd(gT, cnt, *cts, 16, cfg, fwd_out=got)
         torch.cuda.synchronize()
         d_want = raster_cuda.composite_tiles_reference_bwd(gT, cnt, *cts, 16, cfg)
-        rec = check_bwd(d_got, d_want, f"seeded tiles, K={K}")
+        rec = check_bwd(d_got, d_want, where)
+        counts = cnt[:, 0].long().tolist()
         past = all(bool((d_got[t, :, c:] == 0).all()) for t, c in enumerate(counts))
-        clamped = pair_counts(gT, cnt, 16, cfg)["clamped"]
-        emit({"phase": "bwd_kernel_vs_twin", "tiles": 64, "K": K, **rec,
-              "zeros_past_counts": past, "clamped_pairs": clamped})
+        same = bool(torch.equal(d_got, d_again))
+        emit({"phase": "bwd_kernel_vs_twin", "tiles": where, "K": K, **rec,
+              "zeros_past_counts": past, "bitwise_deterministic": same,
+              "clamped_pairs": pairs["clamped"]})
         if not past:
             raise AssertionError("composite_bwd wrote nonzero gradients past a tile's count")
-        if not clamped:
+        if not same:
+            raise AssertionError(f"composite_bwd is not deterministic ({where})")
+        if where.startswith("seeded") and not pairs["clamped"]:
             raise AssertionError("no seeded pair reaches the alpha_max clamp")
+    emit({"phase": "footprint", **footprint_check(dev)})
 
     # 4. The forward path at full width: the bench scene through
     # rasterize_arrays_with_stats, then the same frame on backend="torch".
@@ -434,18 +624,23 @@ def main() -> int:
     if not (errs[0] <= 1e-4 and errs[1] <= 1e-4 and errs[2] <= 4e-4 and live_eq):
         raise AssertionError("composite kernel disagrees with its twin at bench scale")
 
-    # The backward kernel vs its twin at the same shapes, seeded cotangents.
+    # The backward kernel vs its twin at the same shapes, seeded cotangents,
+    # twice (bitwise equal).
     gen = np.random.default_rng(1)
     cts = [torch.tensor(gen.normal(size=s), dtype=torch.float32, device=dev)
            for s in ((T_live, ts * ts, 3), (T_live, ts * ts), (T_live, ts * ts))]
-    d_got = raster_cuda.composite_tiles_bwd(gT, cnt, *cts, ts, cfg)
+    d_got = raster_cuda.composite_tiles_bwd(gT, cnt, *cts, ts, cfg, fwd_out=got)
+    d_again = raster_cuda.composite_tiles_bwd(gT, cnt, *cts, ts, cfg, fwd_out=got)
     torch.cuda.synchronize()
     d_want = raster_cuda.composite_tiles_reference_bwd(gT, cnt, *cts, ts, cfg)
     bwd_rec = check_bwd(d_got, d_want, "bench shapes")
+    same = bool(torch.equal(d_got, d_again))
     emit({"phase": "bwd_kernel_vs_twin", "tiles": T_live, "K": cfg.max_splats_per_tile,
-          **bwd_rec})
+          **bwd_rec, "bitwise_deterministic": same})
+    if not same:
+        raise AssertionError("composite_bwd is not deterministic at bench scale")
     bwd_err = max(bwd_rec["max_abs_err"])
-    del d_want
+    del d_want, d_again
 
     # 5. Gradients at full width: d sum(rgb * ct) / d(means, cov, opacity,
     # features) on backend "cuda" (one composite_fwd and one composite_bwd
@@ -483,13 +678,24 @@ def main() -> int:
             raise AssertionError(f"cuda vs torch gradient of {name}: {rec}")
     del g_cuda, g_torch
 
-    # 6. Timing on this card, this call.
+    # 6. Timing on this card, this call. Kernels: device time per launch
+    # from a profiler trace (`kernel_ms`, `bwd_kernel_ms`, the `kernels`
+    # line's `ms`) and, beside it, CUDA events around back-to-back calls of
+    # the wrapper (`*_wall_ms`), which include the host's launch gaps where
+    # they exceed the kernel. The two measures differ; compare a kernel
+    # across versions on one of them.
     frame_ms = cuda_ms(lambda: R.rasterize_arrays(*args, cfg), iters=10)
     frame_torch_ms = cuda_ms(lambda: R.rasterize_arrays(*args, tcfg), iters=3, warmup=1)
-    kernel_ms = cuda_ms(lambda: raster_cuda.composite_tiles(gT, cnt, ts, cfg), iters=20)
+    kernel_ms = kernel_device_ms(lambda: raster_cuda.composite_tiles(gT, cnt, ts, cfg),
+                                 "composite_fwd_kernel")
+    kernel_wall_ms = cuda_ms(lambda: raster_cuda.composite_tiles(gT, cnt, ts, cfg), iters=20)
     plain_ms = cuda_ms(lambda: raster_cuda.composite_tiles_reference(gT, cnt, ts, cfg),
                        iters=3, warmup=1)
-    bwd_ms = cuda_ms(lambda: raster_cuda.composite_tiles_bwd(gT, cnt, *cts, ts, cfg), iters=20)
+    bwd_ms = kernel_device_ms(
+        lambda: raster_cuda.composite_tiles_bwd(gT, cnt, *cts, ts, cfg, fwd_out=got),
+        "composite_bwd_kernel")
+    bwd_wall_ms = cuda_ms(
+        lambda: raster_cuda.composite_tiles_bwd(gT, cnt, *cts, ts, cfg, fwd_out=got), iters=20)
     bwd_plain_ms = cuda_ms(
         lambda: raster_cuda.composite_tiles_reference_bwd(gT, cnt, *cts, ts, cfg),
         iters=3, warmup=1)
@@ -504,38 +710,55 @@ def main() -> int:
     bf16_cfg = dataclasses.replace(cfg, bwd_sort_bf16=True)
     turns = [cuda_ms(lambda c=c: fwd_bwd(c), iters=5) for c in (cfg, bf16_cfg, bf16_cfg, cfg)]
     train_ms, train_bf16_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-    # Least time for each kernel's work on these inputs: the visibility test
-    # on every alive pair and the rest of the formula on the visible ones,
-    # this frame's counts, against reading its inputs once and writing its
-    # outputs once. `horizon_pairs` (the stats' chunk-granular horizon) is
-    # what the kernels' block-level exit visits.
+    # Least time for each kernel's work on these inputs, whatever its
+    # design: the whole formula on the visible pairs of this frame against
+    # reading the function's inputs once and writing its outputs once. The
+    # function reads only the entries before min(count, live) of each tile
+    # (`read_entries`; nothing past them changes an output), the counts and,
+    # backward, the cotangents; it writes [T, P, 5] and live forward, the
+    # whole d_gT backward. The forward outputs the backward kernel also
+    # reads are a residual of its design and not counted. Beside it, the
+    # pairs each design tests: `horizon_pairs` (the stats' chunk-granular
+    # horizon, what the block-level exit visits), `alive_pairs` and
+    # `candidate_pairs` (what the culled kernels test), and the bound that
+    # charges the visibility test to every alive pair.
     pairs = pair_counts(gT, cnt, ts, cfg)
     horizon_pairs = stats["mean_live"] * num_tiles * ts * ts
-    ops_ms = ((pairs["alive"] * OPS_TEST + pairs["visible"] * OPS_VISIBLE_FWD)
-              / PEAK_FP32_FLOPS * 1e3)
-    nbytes = gT.numel() * 4 + cnt.numel() * 4 + T_live * ts * ts * 5 * 4
+    ops_ms = pairs["visible"] * (OPS_TEST + OPS_VISIBLE_FWD) / PEAK_FP32_FLOPS * 1e3
+    read_entries = int(torch.minimum(cnt[:, 0], got[3]).sum())
+    entry_bytes = read_entries * gT.shape[1] * 4
+    nbytes = entry_bytes + cnt.numel() * 4 + T_live * ts * ts * 5 * 4 + T_live * 4
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
-    bwd_ops_ms = ((pairs["alive"] * OPS_TEST + pairs["visible"] * OPS_VISIBLE_BWD)
-                  / PEAK_FP32_FLOPS * 1e3)
-    bwd_nbytes = 2 * gT.numel() * 4 + cnt.numel() * 4 + T_live * ts * ts * 5 * 4
+    bwd_ops_ms = pairs["visible"] * (OPS_TEST + OPS_VISIBLE_BWD) / PEAK_FP32_FLOPS * 1e3
+    bwd_nbytes = entry_bytes + cnt.numel() * 4 + T_live * ts * ts * 5 * 4 + gT.numel() * 4
     bwd_bytes_ms = bwd_nbytes / PEAK_BYTES_PER_S * 1e3
     bwd_bound_ms = max(bwd_ops_ms, bwd_bytes_ms)
+    invisible_tests = (pairs["alive"] - pairs["visible"]) * OPS_TEST
+    alive_ops_ms = (pairs["visible"] * (OPS_TEST + OPS_VISIBLE_FWD) + invisible_tests) \
+        / PEAK_FP32_FLOPS * 1e3
+    bwd_alive_ops_ms = (pairs["visible"] * (OPS_TEST + OPS_VISIBLE_BWD) + invisible_tests) \
+        / PEAK_FP32_FLOPS * 1e3
     emit({"phase": "timing", "card": card, "frame_ms": frame_ms,
           "frame_mpx_per_s": WIDTH * HEIGHT / frame_ms / 1e3,
           "frame_torch_backend_ms": frame_torch_ms,
           "kernel_ms": kernel_ms, "kernel_mpx_per_s": WIDTH * HEIGHT / kernel_ms / 1e3,
+          "kernel_wall_ms": kernel_wall_ms,
           "plain_ms": plain_ms, "horizon_pairs": horizon_pairs,
-          "alive_pairs": pairs["alive"], "visible_pairs": pairs["visible"],
-          "ops_bound_ms": ops_ms,
-          "bytes": nbytes, "bytes_bound_ms": bytes_ms,
+          "read_entries": read_entries,
+          "alive_pairs": pairs["alive"], "candidate_pairs": pairs["candidate"],
+          "visible_pairs": pairs["visible"],
+          "ops_bound_ms": ops_ms, "bytes": nbytes, "bytes_bound_ms": bytes_ms,
+          "bound_ms": bound_ms, "alive_ops_bound_ms": alive_ops_ms,
           "fwd_bwd_ms": train_ms, "fwd_bwd_mpx_per_s": WIDTH * HEIGHT / train_ms / 1e3,
           "fwd_bwd_bf16_ms": train_bf16_ms,
           "fwd_bwd_bf16_mpx_per_s": WIDTH * HEIGHT / train_bf16_ms / 1e3,
           "fwd_bwd_turns_ms": turns,
-          "bwd_kernel_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
+          "bwd_kernel_ms": bwd_ms, "bwd_kernel_wall_ms": bwd_wall_ms,
+          "bwd_plain_ms": bwd_plain_ms,
           "bwd_ops_bound_ms": bwd_ops_ms, "bwd_bytes": bwd_nbytes,
-          "bwd_bytes_bound_ms": bwd_bytes_ms})
+          "bwd_bytes_bound_ms": bwd_bytes_ms, "bwd_bound_ms": bwd_bound_ms,
+          "bwd_alive_ops_bound_ms": bwd_alive_ops_ms})
     del params, cts, gT, cnt, inputs, want, got
 
     # 7. Photometric refinement at full width (the slice's main path): the

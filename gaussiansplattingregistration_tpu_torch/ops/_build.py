@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into
 `_build/<name>-<hash>.so` (plain C interface, loaded with ctypes); the hash
-covers the source and the flags, so an edited source is rebuilt and a built
-one is reused. Nothing here runs at import: the toolchain is looked up and
-invoked only when a kernel is first launched, or when `build_all` is called.
+covers the source, every header in `csrc/` and the flags, so an edited
+source, header or flag is rebuilt and a built one is reused. Nothing here
+runs at import: the toolchain is looked up and invoked only when a kernel
+is first launched, or when `build_all` is called.
 """
 
 from __future__ import annotations
@@ -46,9 +47,12 @@ def sources() -> list[str]:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith((".cuh", ".h")))
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def _start(name: str, target: str) -> subprocess.Popen:

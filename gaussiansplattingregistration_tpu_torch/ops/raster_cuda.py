@@ -19,9 +19,16 @@ it runs `composite_tiles_reference`, the kernel's plain-torch twin.
 The backward (`composite_tiles_bwd`, the JAX `_bwd_rule`) takes the
 cotangents of rgb, alpha and depth and returns d_gT [T, 10, K], the
 per-entry gradients of the ten channels. On a CUDA tensor it launches
-`csrc/composite_bwd.cu` and adds one to `composite_tiles_bwd.launches`; on a
-CPU tensor it runs `composite_tiles_reference_bwd`. Neither direction falls
-back from one route to the other.
+`csrc/composite_bwd.cu`, which also reads the forward's outputs (saved by
+`_CompositeTiles` as residuals: each pixel's total sum (dL/dw) w and the
+horizon come from them), and adds one to `composite_tiles_bwd.launches`; on
+a CPU tensor it runs `composite_tiles_reference_bwd`. Neither direction
+falls back from one route to the other.
+
+Both kernels cull per warp (`csrc/tile_footprint.cuh`): `entry_footprints`
+is the box formula of that header and `thread_pixels` its warp layout, in
+plain torch, for the tests and for counting the pairs the kernels test;
+`footprint_boxes` returns the header's own boxes from the card.
 """
 
 from __future__ import annotations
@@ -61,6 +68,102 @@ def _chunk_terms(pc, px, py, in_count, config):
     visible = (alpha >= config.alpha_clip) & (sigma >= 0.0) & in_count[:, None, :]
     alpha = torch.where(visible, alpha, 0.0)
     return dx, dy, sigma, exp_term, raw_alpha, alpha
+
+
+# The culling margin of csrc/tile_footprint.cuh (see its note).
+_FOOT_SHRINK = 1e-5   # relative cut of conic a and c
+_FOOT_REL = 1e-3      # relative inflation of s_max and the extents
+_FOOT_ABS = 1e-3      # absolute inflation (s_max, then px)
+_FOOT_MIN_DET = 1e-9  # det / (a c) below this: degenerate
+
+
+def entry_footprints(gT: torch.Tensor, config) -> torch.Tensor:
+    """[T, 4, K] f64 boxes (x0, x1, y0, y1), tile-local, holding every pixel
+    centre at which each entry can be visible: the formula of
+    `csrc/tile_footprint.cuh::entry_box` with its margin. Empty (x0 > x1)
+    where op < alpha_clip; the whole plane for a conic that is not positive
+    definite, a non-finite parameter, or alpha_clip <= 0."""
+    g = gT.detach().to(torch.float64)
+    mx, my, a, b, c, op = (g[:, i, :] for i in range(6))
+    clip = float(torch.tensor(config.alpha_clip, dtype=torch.float32))
+    finite = torch.isfinite(g[:, :6, :]).all(dim=1) & (clip > 0.0)
+    ad, cd = a * (1.0 - _FOOT_SHRINK), c * (1.0 - _FOOT_SHRINK)
+    det = ad * cd - b * b
+    bounded = (ad > 0) & (cd > 0) & (det > _FOOT_MIN_DET * ad * cd)
+    empty = finite & (op < clip)
+    box = finite & ~empty & bounded
+    s = torch.log(torch.where(box, op, clip) / clip) * (1.0 + _FOOT_REL) + _FOOT_ABS
+    det = torch.where(box, det, 1.0)
+    hx = torch.sqrt(2.0 * s * torch.where(box, cd, 1.0) / det) * (1.0 + _FOOT_REL) + _FOOT_ABS
+    hy = torch.sqrt(2.0 * s * torch.where(box, ad, 1.0) / det) * (1.0 + _FOOT_REL) + _FOOT_ABS
+    inf = torch.full_like(mx, float("inf"))
+    lo = torch.where(empty, inf, -inf)     # the whole plane where not a box
+    out = [torch.where(box, mx - hx, lo), torch.where(box, mx + hx, -lo),
+           torch.where(box, my - hy, lo), torch.where(box, my + hy, -lo)]
+    return torch.stack(out, dim=1)
+
+
+def _round_out(v: torch.Tensor, up: bool) -> torch.Tensor:
+    """f64 -> f32, rounded toward +inf (`up`) or -inf."""
+    f = v.to(torch.float32)
+    if up:
+        return torch.where(f.double() < v, torch.nextafter(f, torch.tensor(float("inf"))), f)
+    return torch.where(f.double() > v, torch.nextafter(f, torch.tensor(float("-inf"))), f)
+
+
+def footprint_boxes(gT: torch.Tensor, config) -> torch.Tensor:
+    """[T, 4, K] f32 culling boxes of the entries of gT, as both kernels
+    stage them: on a CUDA tensor from `csrc/tile_footprint.cuh::entry_box`
+    (the `entry_boxes` entry point of `csrc/composite_fwd.cu`), on a CPU
+    tensor `entry_footprints` with its edges rounded outward to f32, as the
+    header rounds them. For checks; not on the render path."""
+    if gT.device.type == "cpu":
+        b = entry_footprints(gT, config)
+        return torch.stack([_round_out(b[:, i], up=bool(i % 2)) for i in range(4)], dim=1)
+    if gT.dtype != torch.float32 or gT.ndim != 3 or gT.shape[1] != _NCH:
+        raise ValueError(f"gT must be float32 [T, {_NCH}, K], got {gT.dtype} {tuple(gT.shape)}")
+    gT = gT.contiguous()
+    T0, _, K = gT.shape
+    out = torch.empty((T0, K, 4), dtype=torch.float32, device=gT.device)
+    with torch.cuda.device(gT.device):
+        stream = torch.cuda.current_stream(gT.device).cuda_stream
+        err = _boxes_entry()(gT.data_ptr(), T0, K, config.alpha_clip, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"entry_boxes launch failed: cudaError {err}")
+    return out.permute(0, 2, 1)
+
+
+def thread_pixels(ts: int) -> torch.Tensor:
+    """Row-major pixel index of each kernel thread (-1 where a lane of the
+    last warp holds no pixel): the warp layout of csrc/tile_footprint.cuh,
+    8x4 pixel blocks where ts is a multiple of 8, else runs of 32."""
+    P = ts * ts
+    t = torch.arange(-(-P // 32) * 32)
+    if ts % 8 == 0:
+        warp, lane = t // 32, t % 32
+        p = ((warp // (ts // 8)) * 4 + lane // 8) * ts + (warp % (ts // 8)) * 8 + lane % 8
+    else:
+        p = t
+    return torch.where(t < P, p, -1)
+
+
+def warp_candidates(boxes: torch.Tensor, ts: int) -> torch.Tensor:
+    """[T, P, K] bool: entry k is on the list of pixel p's warp (its box
+    meets the box of the warp's pixel centres), for boxes [T, 4, K] from
+    `entry_footprints`."""
+    tp = thread_pixels(ts)
+    warp_of = torch.empty(ts * ts, dtype=torch.long)
+    warp_of[tp[tp >= 0]] = torch.nonzero(tp >= 0)[:, 0] // 32
+    cx = (torch.arange(ts * ts) % ts).double() + 0.5
+    cy = (torch.arange(ts * ts) // ts).double() + 0.5
+    n_warps = int(warp_of.max()) + 1
+    wb = torch.stack([torch.stack([cx[warp_of == w].min(), cx[warp_of == w].max(),
+                                   cy[warp_of == w].min(), cy[warp_of == w].max()])
+                      for w in range(n_warps)]).to(boxes.device)        # [W, 4]
+    x0, x1, y0, y1 = (boxes[:, None, i, :] for i in range(4))           # [T, 1, K]
+    hit = ((x0 <= wb[None, :, 1, None]) & (x1 >= wb[None, :, 0, None])
+           & (y0 <= wb[None, :, 3, None]) & (y1 >= wb[None, :, 2, None]))  # [T, W, K]
+    return hit[:, warp_of.to(boxes.device), :]
 
 
 def _value_rows(pc):
@@ -180,9 +283,9 @@ def composite_tiles_reference_bwd(gT, counts, g_rgb, g_alpha, g_depth, ts: int, 
 
 
 # Both C entry points take gT, counts, T, K, ts, alpha_clip, alpha_max,
-# tmin, then four buffers (the forward's outputs, or the backward's three
-# cotangents and d_gT) and the stream.
-_N_POINTERS = 5
+# tmin, then their buffers and the stream: the forward's four outputs; the
+# backward's three cotangents, the forward's four outputs and d_gT.
+_N_POINTERS = {"composite_fwd": 5, "composite_bwd": 9}
 
 
 @functools.cache
@@ -194,7 +297,19 @@ def _kernel(name: str):
     p = ctypes.c_void_p
     fn.argtypes = ([p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_float, ctypes.c_float, ctypes.c_float]
-                   + [p] * _N_POINTERS)
+                   + [p] * _N_POINTERS[name])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _boxes_entry():
+    """The C entry point `entry_boxes` of composite_fwd's library."""
+    from gaussiansplattingregistration_tpu_torch.ops import _build
+
+    fn = _build.library("composite_fwd").entry_boxes
+    p = ctypes.c_void_p
+    fn.argtypes = [p, ctypes.c_int, ctypes.c_int, ctypes.c_float, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -239,30 +354,34 @@ def _launch(gT: torch.Tensor, counts: torch.Tensor, ts: int, config):
     return rgb, alpha, depth, live
 
 
-def _launch_bwd(gT, counts, g_rgb, g_alpha, g_depth, ts: int, config):
+def _launch_bwd(gT, counts, g_rgb, g_alpha, g_depth, ts: int, config, fwd_out):
     cnt = _check_inputs(gT, counts, ts)
     T0, P = gT.shape[0], ts * ts
-    cts = []
-    for name, ct, shape in (("g_rgb", g_rgb, (T0, P, 3)), ("g_alpha", g_alpha, (T0, P)),
-                            ("g_depth", g_depth, (T0, P))):
-        if ct.device != gT.device or tuple(ct.shape) != shape:
+    bufs = []
+    for name, t, shape in (("g_rgb", g_rgb, (T0, P, 3)), ("g_alpha", g_alpha, (T0, P)),
+                           ("g_depth", g_depth, (T0, P)), ("rgb", fwd_out[0], (T0, P, 3)),
+                           ("alpha", fwd_out[1], (T0, P)), ("depth", fwd_out[2], (T0, P)),
+                           ("live", fwd_out[3], (T0,))):
+        if t.device != gT.device or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape} on {gT.device}, got "
-                             f"{tuple(ct.shape)} on {ct.device}")
-        cts.append(ct.to(torch.float32).contiguous())
+                             f"{tuple(t.shape)} on {t.device}")
+        bufs.append(t.to(torch.float32).contiguous())
     # The kernel writes every slot of d_gT, zeros past each tile's horizon.
     d_gT = torch.empty_like(gT)
     _call("composite_bwd", gT, cnt, ts, config,
-          *(ct.data_ptr() for ct in cts), d_gT.data_ptr())
+          *(b.data_ptr() for b in bufs), d_gT.data_ptr())
     composite_tiles_bwd.launches += 1
     return d_gT
 
 
-def composite_tiles_bwd(gT, counts, g_rgb, g_alpha, g_depth, ts: int, config):
+def composite_tiles_bwd(gT, counts, g_rgb, g_alpha, g_depth, ts: int, config, fwd_out):
     """d_gT [T, 10, K] of the compositor for the cotangents of (rgb, alpha,
-    depth): the kernel on a CUDA tensor, its twin on a CPU tensor."""
+    depth): the kernel on a CUDA tensor, its twin on a CPU tensor. `fwd_out`
+    is the forward's (rgb, alpha, depth, live) on these inputs, which the
+    kernel reads; the twin recomputes what it needs."""
     if gT.device.type == "cpu":
         return composite_tiles_reference_bwd(gT, counts, g_rgb, g_alpha, g_depth, ts, config)
-    return _launch_bwd(gT, counts, g_rgb, g_alpha, g_depth, ts, config)
+    return _launch_bwd(gT, counts, g_rgb, g_alpha, g_depth, ts, config, fwd_out)
 
 
 class _CompositeTiles(torch.autograd.Function):
@@ -273,16 +392,18 @@ class _CompositeTiles(torch.autograd.Function):
         else:
             outs = _launch(gT, counts, ts, config)
         ctx.mark_non_differentiable(outs[3])
-        # Residuals are (gT, counts) only, as the JAX `_fwd_rule`'s: the
-        # backward recomputes the transmittance.
-        ctx.save_for_backward(gT, counts)
+        # Residuals: (gT, counts), as the JAX `_fwd_rule`'s, and the outputs,
+        # from which the backward kernel reads each pixel's total and each
+        # tile's horizon instead of recomputing them.
+        ctx.save_for_backward(gT, counts, *outs)
         ctx.ts, ctx.config = ts, config
         return outs
 
     @staticmethod
     def backward(ctx, g_rgb, g_alpha, g_depth, _g_live):
-        gT, counts = ctx.saved_tensors
-        d_gT = composite_tiles_bwd(gT, counts, g_rgb, g_alpha, g_depth, ctx.ts, ctx.config)
+        gT, counts, *outs = ctx.saved_tensors
+        d_gT = composite_tiles_bwd(gT, counts, g_rgb, g_alpha, g_depth, ctx.ts, ctx.config,
+                                   fwd_out=outs)
         return d_gT, None, None, None
 
 

@@ -140,7 +140,7 @@ def test_composite_tiles_wrapper_on_cpu(rng):
     with pytest.raises(ValueError, match="CUDA tensor"):
         raster_cuda._launch(gT.detach(), cnt, 16, cfg)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        raster_cuda._launch_bwd(gT.detach(), cnt, g_rgb, zeros, zeros, 16, cfg)
+        raster_cuda._launch_bwd(gT.detach(), cnt, g_rgb, zeros, zeros, 16, cfg, out)
 
 
 # ----------------------------------------------------- (b) tile table
