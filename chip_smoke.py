@@ -9,8 +9,14 @@ paths at the bench
 scene's full width (1M splats at 1280x720): the forward render, the
 gradients of the whole rasterizer against the plain-torch backend,
 fwd+bwd timing, and photometric pose refinement; then the `render` and
-`photometric` CLI. It prints one JSON line per phase. The last lines are the `kernels` record, the
-card's name and power limit, and `{"ok": true, "device": {...}}`.
+`photometric` CLI. Then the registration path at bench.py's sizes (plain
+torch on the card): neighbor search at 100k points against the CPU, ICP
+(config 1, brute and grid), HEM (config 3, 200k splats) and the mixture
+multiscale registration on its levels, and tests/test_e2e_cli.py's flow
+through the port's CLI, whose evaluation is driven once more in this
+process with the kernels' launch counts. It prints one JSON line per
+phase. The last lines are the `kernels` record, the card's name and power
+limit, and `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one GPU
 
@@ -483,6 +489,379 @@ def check_bwd(got, want, where: str) -> dict:
     return {"max_abs_err": err, "twin_max_abs": scale}
 
 
+def two_clouds(rng, n, offset=(0.08, -0.05, 0.04), angle=0.06, colors=False):
+    """bench.py's `_two_clouds` draws as numpy: a wavy surface `tgt`, its
+    copy `src` = R tgt + offset (R about z by `angle`), colors or None, and
+    the 4x4 T_src with src = T_src tgt."""
+    pts = rng.uniform(-1.0, 1.0, size=(n, 3)).astype(np.float32)
+    pts[:, 2] = 0.3 * np.sin(3.0 * pts[:, 0]) + 0.2 * np.cos(2.0 * pts[:, 1])
+    pts[:, 2] += 0.01 * rng.normal(size=n).astype(np.float32)
+    c, s = math.cos(angle), math.sin(angle)
+    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    src = pts @ R.T + np.asarray(offset, np.float32)
+    col = (0.5 + 0.5 * np.sin(5.0 * pts)).astype(np.float32) if colors else None
+    T_src = np.eye(4)
+    T_src[:3, :3], T_src[:3, 3] = R, offset
+    return src, pts, col, T_src
+
+
+def random_cloud(rng, n, sh_degree, scale_range, dev):
+    """tests/scene_utils.py's `make_random_cloud` draws, as a port cloud."""
+    from gaussiansplattingregistration_tpu_torch.models.gaussian_cloud import GaussianCloud
+
+    k_rest = (sh_degree + 1) ** 2 - 1
+    quats = rng.normal(size=(n, 4))
+    return GaussianCloud.create(
+        xyz=rng.normal(size=(n, 3)).astype(np.float32),
+        features_dc=rng.normal(size=(n, 1, 3)).astype(np.float32) * 0.5,
+        features_rest=rng.normal(size=(n, k_rest, 3)).astype(np.float32) * 0.1,
+        opacity=rng.normal(size=(n, 1)).astype(np.float32),
+        scaling=np.log(rng.uniform(*scale_range, size=(n, 3))).astype(np.float32),
+        rotation=quats.astype(np.float32),
+        sh_degree=sh_degree, device=dev,
+    )
+
+
+def point_cloud(points, colors=None, dev="cuda"):
+    from gaussiansplattingregistration_tpu_torch.models.point_cloud import PointCloud
+
+    return PointCloud(points=torch.as_tensor(points, device=dev),
+                      colors=None if colors is None else torch.as_tensor(colors, device=dev))
+
+
+def sqdist_rows(query, data, idx):
+    """[Q, k] squared distances of query i to data[idx[i, j]] on the CPU,
+    summed as the brute form sums them."""
+    q, d = query.cpu(), data.cpu()
+    nb = d[idx.cpu().reshape(-1)].reshape(*idx.shape, 3)
+    acc = None
+    for c in range(3):
+        term = torch.sub(nb[..., c], q[:, None, c]).square_()
+        acc = term if acc is None else acc.add_(term)
+    return acc
+
+
+def non_tie_mismatches(query, data, idx_a, idx_b) -> int:
+    """Index mismatches whose two neighbors are not at the same distance."""
+    idx_a, idx_b = idx_a.cpu().reshape(len(query), -1), idx_b.cpu().reshape(len(query), -1)
+    d_a, d_b = sqdist_rows(query, data, idx_a), sqdist_rows(query, data, idx_b)
+    return int(((idx_a != idx_b) & (d_a != d_b)).sum())
+
+
+def knn_phase(dev, surf_src, surf_tgt, vol) -> dict:
+    """Neighbor search at 100k points on the card against the CPU: nearest
+    neighbor on a 10k-query subset and knn(k=32) on 2k queries of the
+    surface pair; the grid against brute within the gate (0.05) on the
+    volumetric scene. d2 within 1e-6 relative, no index mismatch but ties."""
+    from gaussiansplattingregistration_tpu_torch.ops import knn
+
+    rec = {}
+    q, d = torch.as_tensor(surf_src, device=dev), torch.as_tensor(surf_tgt, device=dev)
+    t0 = time.perf_counter()
+    d2, idx = knn.nearest_neighbor(q, d)
+    torch.cuda.synchronize()
+    rec["nn_100k_x_100k_s"] = time.perf_counter() - t0
+    d2_cpu, idx_cpu = knn.nearest_neighbor(q[:10_000].cpu(), d.cpu())
+    rec["nn_max_rel_d2_gap"] = float(((d2[:10_000].cpu() - d2_cpu).abs()
+                                      / d2_cpu.clamp_min(1e-30)).max())
+    rec["nn_non_tie_mismatches"] = non_tie_mismatches(q[:10_000], d, idx[:10_000], idx_cpu)
+    rec["nn_ties"] = int((idx[:10_000].cpu() != idx_cpu).sum()) - rec["nn_non_tie_mismatches"]
+
+    d2k, idxk = knn.knn(q[:2000], d, k=32)
+    d2k_cpu, idxk_cpu = knn.knn(q[:2000].cpu(), d.cpu(), k=32)
+    rec["knn32_max_rel_d2_gap"] = float(((d2k.cpu() - d2k_cpu).abs()
+                                         / d2k_cpu.clamp_min(1e-30)).max())
+    rec["knn32_non_tie_mismatches"] = non_tie_mismatches(q[:2000], d, idxk, idxk_cpu)
+
+    gate = 0.05
+    vq = torch.as_tensor(vol[1], device=dev)
+    vd = torch.as_tensor(vol[0], device=dev)
+    plan = knn.grid_nn_plan(vd, gate)
+    if plan is None:
+        raise AssertionError("no grid plan for the volumetric scene at gate 0.05")
+    origin, inv_cell, dims, max_occ = plan
+    table = knn.build_grid_table(vd, torch.ones(len(vd), dtype=torch.bool, device=dev),
+                                 origin, inv_cell, *dims, max_occ)
+    d2g, idxg = knn.grid_nearest_neighbor(vq, table, origin, inv_cell, *dims, 27 * max_occ)
+    d2b, idxb = knn.nearest_neighbor(vq, vd)
+    gated = d2b <= gate * gate
+    rec.update({"grid_dims": list(dims), "grid_w": 27 * max_occ,
+                "grid_gated_queries": int(gated.sum()),
+                "grid_max_rel_d2_gap": float(((d2g - d2b).abs() / d2b.clamp_min(1e-30))[gated]
+                                             .max()),
+                "grid_non_tie_mismatches": non_tie_mismatches(vq[gated], vd, idxg[gated],
+                                                              idxb[gated]),
+                "grid_out_of_gate_ok": bool((d2g[~gated] > gate * gate).all())})
+    bad = (rec["nn_max_rel_d2_gap"] > 1e-6 or rec["nn_non_tie_mismatches"]
+           or rec["knn32_max_rel_d2_gap"] > 1e-6 or rec["knn32_non_tie_mismatches"]
+           or rec["grid_max_rel_d2_gap"] > 1e-6 or rec["grid_non_tie_mismatches"]
+           or not rec["grid_out_of_gate_ok"])
+    if bad:
+        raise AssertionError(f"neighbor search on the card disagrees: {rec}")
+    return rec
+
+
+def icp_phase(dev, surf, vol) -> dict:
+    """bench.py config 1 on the card: point-to-point ICP on two 100k
+    surface clouds (gate 0.3, 30 fixed iterations; "auto" keeps brute),
+    then the volumetric 100k pair at gate 0.05 ("auto" must take the grid).
+    Wall per iteration after a warm-up run. Then the four variants at 10k
+    points, card against CPU, poses within 1e-4."""
+    from gaussiansplattingregistration_tpu_torch.models import parameters as P
+    from gaussiansplattingregistration_tpu_torch.ops import icp
+
+    rec = {}
+    for name, (src, tgt, T_src), gate, want in (("surface_100k", surf, 0.3, "brute"),
+                                                ("volumetric_100k", vol, 0.05, "grid")):
+        source, target = point_cloud(src, dev=dev), point_cloud(tgt, dev=dev)
+        params = P.LocalRegistrationParams(max_correspondence=gate, max_iteration=30,
+                                           relative_fitness=0.0, relative_rmse=0.0)
+        path = "grid" if icp.correspondence_plan(source, target, gate) is not None else "brute"
+        icp.icp(source, target, params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = icp.icp(source, target, params)
+        wall = time.perf_counter() - t0
+        rec[name] = {"path": path, "iterations": res.num_iterations, "wall_s": wall,
+                     "ms_per_iteration": wall / res.num_iterations * 1e3,
+                     "fitness": res.fitness, "rmse": res.inlier_rmse,
+                     "pose_error": pose_error(res.transformation, T_src)}
+        if path != want:
+            raise AssertionError(f"icp {name}: auto took {path}, expected {want}")
+        rec[name]["pose_error_start"] = pose_error(np.eye(4), T_src)
+        if not (res.num_iterations == 30 and np.isfinite(res.transformation).all()
+                and rec[name]["pose_error"] < rec[name]["pose_error_start"]):
+            raise AssertionError(f"icp {name}: {rec[name]}")
+
+    src, tgt, col, _ = two_clouds(np.random.default_rng(4), 10_000, colors=True)
+    gaps = {}
+    for variant in ("ICP_POINT_TO_POINT", "ICP_POINT_TO_PLANE", "ICP_COLOR", "ICP_GENERAL"):
+        params = P.LocalRegistrationParams(
+            registration_type=P.LocalRegistrationType[variant], max_correspondence=0.3,
+            max_iteration=10, relative_fitness=0.0, relative_rmse=0.0)
+        on = [icp.icp(point_cloud(src, col, d), point_cloud(tgt, col, d), params)
+              for d in (dev, "cpu")]
+        gaps[variant] = {"pose_max_abs_gap": float(np.abs(on[0].transformation
+                                                          - on[1].transformation).max()),
+                         "fitness_gap": on[0].fitness - on[1].fitness,
+                         "rmse_gap": on[0].inlier_rmse - on[1].inlier_rmse}
+    rec["variants_10k_card_vs_cpu"] = gaps
+    if not all(g["pose_max_abs_gap"] <= 1e-4 for g in gaps.values()):
+        raise AssertionError(f"icp variants: card and CPU poses differ: {gaps}")
+    return rec
+
+
+def hem_phase(dev, n: int = 200_000):
+    """bench.py config 3 on the card: 200k splats (SH degree 1, scales
+    0.04-0.10), cluster_level=3, seed 0, twice (the second timed; the level
+    sizes equal, each cut >= 1.8x); one level with injected parent flags at
+    5k splats, card against CPU; the native backend's 200k pass, timed only.
+    Returns (record, cloud, levels)."""
+    from gaussiansplattingregistration_tpu_torch.models.parameters import GaussianMixtureParams
+    from gaussiansplattingregistration_tpu_torch.ops import hem, knn
+
+    cloud = random_cloud(np.random.default_rng(3), n, 1, (0.04, 0.10), dev)
+    params = GaussianMixtureParams(cluster_level=3)
+    t0 = time.perf_counter()
+    first, _ = hem.create_mixture(cloud, params, seed=0, with_stats=True)
+    cold = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    levels, stats = hem.create_mixture(cloud, params, seed=0, with_stats=True)
+    warm = time.perf_counter() - t0
+    sizes = [lvl.xyz.shape[0] for lvl in levels]
+    same_bits = all(np.array_equal(a.xyz, b.xyz) and np.array_equal(a.covariance, b.covariance)
+                    for a, b in zip(first, levels))
+    rec = {"splats": n, "level_sizes": sizes,
+           "first_run_sizes": [lvl.xyz.shape[0] for lvl in first],
+           "runs_bitwise_equal": same_bits, "stats": stats,
+           "search": ["grid" if s["grid_search"] else "global" for s in stats],
+           "cold_s": cold, "warm_s": warm}
+    if rec["first_run_sizes"] != sizes:
+        raise AssertionError(f"HEM level sizes differ between two runs: {rec}")
+    prev = n
+    for sz in sizes:
+        if sz > prev / 1.8:
+            raise AssertionError(f"HEM does not cut each level by 1.8x: {sizes}")
+        prev = sz
+    # Wall per level: warm runs of 1 and 2 levels against the 3-level run
+    # (the same seed draws the same levels), and the level-0 global k=32
+    # search alone (every parent against every point).
+    walls = []
+    for depth in (1, 2):
+        t0 = time.perf_counter()
+        hem.create_mixture(cloud, dataclasses.replace(params, cluster_level=depth), seed=0)
+        walls.append(time.perf_counter() - t0)
+    walls.append(warm)
+    rec["level_wall_s"] = [walls[0], walls[1] - walls[0], walls[2] - walls[1]]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    parents = cloud.xyz[torch.rand(n, generator=gen, device=dev) < 1.0 / params.hem_reduction]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    knn.knn(parents, cloud.xyz, k=32)
+    torch.cuda.synchronize()
+    rec["level0_global_knn32_s"] = time.perf_counter() - t0
+    rec["level0_parents"] = int(parents.shape[0])
+
+    # One level with injected flags, card against CPU (test_native_hem's
+    # tolerances): the same alive count and rows.
+    small = random_cloud(np.random.default_rng(5), 5000, 1, (0.04, 0.10), dev)
+    state = hem.init_mixture(torch.Generator(device=dev), small.xyz, small.get_colors,
+                             small.get_opacity[:, 0], small.get_covariance(),
+                             small.features_rest.reshape(5000, -1), 3.0)
+    flags = torch.as_tensor(np.random.default_rng(7).random(5000) < 1.0 / 3.0, device=dev)
+    state = dataclasses.replace(state, is_parent=flags)
+    outs = []
+    for d in (dev, "cpu"):
+        on_d = hem.MixtureState(**{f.name: getattr(state, f.name).to(d)
+                                   for f in dataclasses.fields(state)})
+        out = hem.hem_cluster_level(torch.Generator(device=d), on_d, 3.0, 3.0, 2.5, 1.0)
+        outs.append({f: getattr(out, f)[out.alive].cpu().numpy().astype(np.float64)
+                     for f in ("mean", "weight", "cov")})
+    order = [np.lexsort(np.round(o["mean"], 4).T[::-1]) for o in outs]
+    rec["injected_5k"] = {"alive": [len(o["mean"]) for o in outs]}
+    if len(outs[0]["mean"]) != len(outs[1]["mean"]):
+        raise AssertionError(f"HEM level on the card and the CPU: {rec['injected_5k']}")
+    for f, rtol, atol in (("mean", 1e-3, 1e-4), ("weight", 1e-3, 1e-4), ("cov", 5e-3, 1e-5)):
+        a, b = outs[0][f][order[0]], outs[1][f][order[1]]
+        rec["injected_5k"][f"{f}_max_abs_gap"] = float(np.abs(a - b).max())
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
+
+    t0 = time.perf_counter()
+    native_levels = hem.create_mixture(cloud, params, seed=0, backend="native")
+    rec["native_wall_s"] = time.perf_counter() - t0
+    rec["native_level_sizes"] = [lvl.xyz.shape[0] for lvl in native_levels]
+    return rec, cloud, levels
+
+
+def multiscale_phase(dev, cloud, levels) -> dict:
+    """bench.py's mixture registration on the HEM levels: the level pyramid
+    of the 200k cloud against its copy moved by (0.05, -0.03, 0.02);
+    voxel_values [0.3, 0.15, 0.08], iter_values [30, 20, 14]. A warm-up
+    run, then the timed one; the translation recovered within 5e-3."""
+    from gaussiansplattingregistration_tpu_torch.models.parameters import (
+        MultiScaleRegistrationParams,
+    )
+    from gaussiansplattingregistration_tpu_torch.pipelines.multiscale import (
+        multiscale_mixture_registration,
+    )
+
+    tgt_levels = [point_cloud(cloud.xyz, cloud.get_colors, dev)] + [
+        point_cloud(lvl.xyz, lvl.colors, dev) for lvl in levels]
+    T_off = np.eye(4, dtype=np.float32)
+    T_off[:3, 3] = (0.05, -0.03, 0.02)
+    src_levels = [pc.transform(T_off) for pc in tgt_levels]
+    ms = MultiScaleRegistrationParams(voxel_values=[0.3, 0.15, 0.08], iter_values=[30, 20, 14])
+    multiscale_mixture_registration(src_levels, tgt_levels, ms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = multiscale_mixture_registration(src_levels, tgt_levels, ms)
+    wall = time.perf_counter() - t0
+    err = float(np.abs(res.transformation[:3, 3] + T_off[:3, 3]).max())
+    rec = {"level_points": [pc.num_points for pc in tgt_levels], "warm_s": wall,
+           "fitness": res.fitness, "rmse": res.inlier_rmse,
+           "translation_max_abs_err": err,
+           "rotation_max_abs_err": float(np.abs(res.transformation[:3, :3] - np.eye(3)).max())}
+    if not err < 5e-3:
+        raise AssertionError(f"multiscale translation error {err} >= 5e-3: {rec}")
+    return rec
+
+
+def load_json(path):
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def run_cli(*args) -> dict:
+    """The port's CLI on the card; its last stdout line as JSON."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "gaussiansplattingregistration_tpu_torch.cli", *map(str, args)],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {args[0]} failed (rc {proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def cli_e2e_phase(dev, raster_cuda, tmp) -> dict:
+    """tests/test_e2e_cli.py's flow through the port's CLI on the card
+    (register -> multiscale --use-mixture -> photometric -> evaluate ->
+    merge -> render) on the demo pair, at its thresholds: every pose error
+    < 2e-2, PSNR > 28, lpips not null, num_points == 2n. Then the same
+    evaluation in this process, with the kernels' launch counts read."""
+    from gaussiansplattingregistration_tpu_torch.pipelines.evaluation import (
+        evaluate_registration,
+        load_cameras_json,
+    )
+    from gaussiansplattingregistration_tpu_torch.utils import io as gio
+
+    data = os.path.join(REPO, "tests", "data")
+    src, tgt = os.path.join(data, "demo_source.ply"), os.path.join(data, "demo_target.ply")
+    with open(os.path.join(data, "demo_transform.json")) as fh:
+        truth = json.load(fh)
+    T_off = np.asarray(truth["T_offset"], np.float64)
+    t = {k: os.path.join(tmp, f"{k}.json") for k in ("t1", "t2", "t3")}
+
+    def load(path):
+        return load_json(path)["transformation"]
+
+    t0 = time.perf_counter()
+    walls = {}
+    start = time.perf_counter()
+    run_cli("register", src, tgt, "--method", "point_to_point", "--max-correspondence", "0.3",
+            "--max-iteration", "30", "--output", t["t1"])
+    walls["register"] = time.perf_counter() - start
+    start = time.perf_counter()
+    run_cli("multiscale", src, tgt, "--use-mixture", "--voxel-values", "0.3,0.1",
+            "--iter-values", "15,10", "--init-transform", t["t1"], "--output", t["t2"])
+    walls["multiscale"] = time.perf_counter() - start
+    cams_json, _, _ = demo_photometric_views(tmp, 64, dev)
+    start = time.perf_counter()
+    run_cli("photometric", src, "--second", tgt, "--cameras", cams_json, "--images-path", tmp,
+            "--init-transform", t["t2"], "--steps", "80", "--lr", "1e-3", "--output", t["t3"])
+    walls["photometric"] = time.perf_counter() - start
+    start = time.perf_counter()
+    log = os.path.join(tmp, "eval.json")
+    metrics = run_cli("evaluate", src, tgt, "--transform", t["t3"], "--cameras", cams_json,
+                      "--images-path", tmp, "--log", log, "--sharded", "off")
+    walls["evaluate"] = time.perf_counter() - start
+    start = time.perf_counter()
+    merged = os.path.join(tmp, "merged.ply")
+    out = run_cli("merge", src, tgt, merged, "--transform", t["t3"])
+    walls["merge"] = time.perf_counter() - start
+    start = time.perf_counter()
+    png = os.path.join(tmp, "render.png")
+    run_cli("render", merged, png, "--width", "96", "--height", "96")
+    walls["render"] = time.perf_counter() - start
+    check_png(png, 96, 96)
+    errs = [pose_error(load(t[k]), T_off) for k in ("t1", "t2", "t3")]
+    rec = {"pose_errors": errs, "psnr": metrics["psnr"], "ssim": metrics["ssim"],
+           "lpips": metrics["lpips"], "lpips_weights": metrics["lpips_weights"],
+           "num_points": out["num_points"], "wall_s": time.perf_counter() - t0,
+           "command_wall_s": walls}
+    if not (all(e < 2e-2 for e in errs) and metrics["psnr"] > 28.0
+            and metrics["lpips"] is not None and out["num_points"] == 2 * truth["n"]
+            and load_json(log)["psnr"] == metrics["psnr"]):
+        raise AssertionError(f"cli e2e flow: {rec}")
+
+    # The slice's own path in this process: evaluate with launch counts.
+    cams = load_cameras_json(cams_json, device=dev)
+    first, second = (gio.load_gaussian_cloud(p, device=dev) for p in (src, tgt))
+    reset_launches(raster_cuda)
+    res = evaluate_registration(first, second, np.asarray(load(t["t3"])), cams, tmp,
+                                device=dev)
+    rec["evaluate_launches"] = read_launches(raster_cuda)
+    rec["evaluate_psnr_in_process"] = res.psnr
+    if rec["evaluate_launches"] != {"composite_fwd": len(cams), "composite_bwd": 0}:
+        raise AssertionError(f"evaluate launches {rec['evaluate_launches']}, "
+                             f"expected one composite_fwd per camera")
+    if not abs(res.psnr - metrics["psnr"]) < 1e-4:
+        raise AssertionError(f"evaluate in process {res.psnr} vs cli {metrics['psnr']}")
+    return rec
+
+
 def reset_launches(raster_cuda) -> None:
     raster_cuda.composite_tiles.launches = 0
     raster_cuda.composite_tiles_bwd.launches = 0
@@ -857,7 +1236,31 @@ def main() -> int:
         if not err < 2e-2:
             raise AssertionError(f"cli photometric pose error {err} >= 2e-2")
 
-    # 9. Every ported kernel, its launches on the slice's main path (the
+    # 9. The registration path (plain torch on the card, no kernel of its
+    # own): neighbor search, ICP, HEM, multiscale at bench.py's sizes, then
+    # the end-to-end CLI flow, whose evaluation runs composite_fwd.
+    rng = np.random.default_rng(1)
+    surf_src, surf_tgt, _, T_surf = two_clouds(rng, 100_000)
+    vol = rng.uniform(-1, 1, size=(100_000, 3)).astype(np.float32)
+    T_vol = se3.se3_exp(torch.tensor([0.01, -0.02, 0.01, 0.03, -0.02, 0.01])).numpy()
+    vol_src = (vol @ T_vol[:3, :3].T + T_vol[:3, 3]).astype(np.float32)
+    for phase, fn in (("knn", lambda: knn_phase(dev, surf_src, surf_tgt, (vol, vol_src))),
+                      ("icp", lambda: icp_phase(dev, (surf_src, surf_tgt, T_surf),
+                                                (vol_src, vol, T_vol.astype(np.float64))))):
+        t0 = time.perf_counter()
+        rec = fn()
+        emit({"phase": phase, "card": card, **rec, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    hem_rec, hem_cloud, hem_levels = hem_phase(dev)
+    emit({"phase": "hem", "card": card, **hem_rec, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    ms_rec = multiscale_phase(dev, hem_cloud, hem_levels)
+    emit({"phase": "multiscale", "card": card, **ms_rec, "seconds": time.perf_counter() - t0})
+    del hem_cloud, hem_levels
+    with tempfile.TemporaryDirectory() as tmp:
+        emit({"phase": "cli_e2e", "card": card, **cli_e2e_phase(dev, raster_cuda, tmp)})
+
+    # 10. Every ported kernel, its launches on the slice's main path (the
     # full-width photometric run) and its numbers.
     src = "gaussiansplattingregistration_tpu_torch/csrc/"
     ref = "gaussiansplattingregistration_tpu/ops/raster_pallas.py:"

@@ -1,9 +1,19 @@
-"""CLI of the torch port: `info`, `render` and `photometric` (more
-subcommands follow the port; see ROADMAP.md).
+"""CLI of the torch port: the JAX CLI's subcommands that the port has so
+far (the rest follow the port; see ROADMAP.md), with its flags and the JSON
+keys it prints.
 
   info          inspect a PLY (type sniffing)
+  register      local ICP (point-to-point, -plane, colored, generalized)
+  multiscale    coarse-to-fine voxel or HEM-mixture registration
+  downsample    HEM Gaussian-mixture levels
   render        rasterize a cloud (or merged pair) to PNG
+  evaluate      photometric evaluation vs GT images
+  merge         transform + concatenate + save
   photometric   differentiable pose registration through the rasterizer
+
+Global registration (`register --method ransac|fgr`), plane subsets
+(`--plane-inliers-*`) and camera-sharded evaluation (`evaluate --sharded
+on`) raise: they follow in later slices of the port.
 
 Transforms are passed as 16-value row-major 4x4 or JSON files
 {"transformation": [[...]]}. `--device cuda` (the default) needs a card;
@@ -44,6 +54,52 @@ def _save_transform(T, path, extra=None):
     print(json.dumps(out))
 
 
+_GLOBAL_SLICE = ("global registration (FPFH with RANSAC or FGR) is not ported yet: it is "
+                 "the next slice of the port (ROADMAP.md, Queue 1, item 14)")
+_PLANES_SLICE = ("plane subsets (--plane-inliers-*) are not ported yet: they come with "
+                 "plane fitting (ROADMAP.md, Queue 1, item 15)")
+_SHARDED_SLICE = ("camera-sharded evaluation is not ported yet: it comes with the "
+                  "multi-GPU slice (ROADMAP.md, Queue 1, item 17)")
+
+_ICP_TYPES = ("point_to_point", "point_to_plane", "colored", "generalized")
+_KERNELS = ("none", "tukey", "cauchy", "gm", "huber")
+
+
+def _icp_type(name):
+    from gaussiansplattingregistration_tpu_torch.models.parameters import LocalRegistrationType
+
+    return {
+        "point_to_point": LocalRegistrationType.ICP_POINT_TO_POINT,
+        "point_to_plane": LocalRegistrationType.ICP_POINT_TO_PLANE,
+        "colored": LocalRegistrationType.ICP_COLOR,
+        "generalized": LocalRegistrationType.ICP_GENERAL,
+    }[name]
+
+
+def _load_pair(args):
+    from gaussiansplattingregistration_tpu_torch.utils import io as gio
+
+    return (gio.load_point_cloud_any(args.first, device=args.device),
+            gio.load_point_cloud_any(args.second, device=args.device))
+
+
+def _as_point_cloud(obj):
+    from gaussiansplattingregistration_tpu_torch.models.gaussian_cloud import GaussianCloud
+    from gaussiansplattingregistration_tpu_torch.utils import io as gio
+
+    return gio.gaussian_to_point_cloud(obj) if isinstance(obj, GaussianCloud) else obj
+
+
+def _mixture_params(args, cluster_level):
+    from gaussiansplattingregistration_tpu_torch.models.parameters import GaussianMixtureParams
+
+    return GaussianMixtureParams(
+        hem_reduction=args.hem_reduction, distance_delta=args.distance_delta,
+        color_delta=args.color_delta, decay_rate=args.decay_rate,
+        cluster_level=cluster_level,
+    )
+
+
 def cmd_info(args):
     from gaussiansplattingregistration_tpu_torch.models.gaussian_cloud import GaussianCloud
     from gaussiansplattingregistration_tpu_torch.utils import io as gio
@@ -60,6 +116,93 @@ def cmd_info(args):
     info["aabb_min"] = xyz.min(0).tolist()
     info["aabb_max"] = xyz.max(0).tolist()
     print(json.dumps(info))
+
+
+def cmd_register(args):
+    from gaussiansplattingregistration_tpu_torch.models import parameters as P
+    from gaussiansplattingregistration_tpu_torch.ops import icp as icp_ops
+
+    if args.plane_inliers_first or args.plane_inliers_second:
+        raise SystemExit(_PLANES_SLICE)
+    if args.method in ("ransac", "fgr"):
+        raise SystemExit(_GLOBAL_SLICE)
+    first, second = _load_pair(args)
+    params = P.LocalRegistrationParams(
+        registration_type=_icp_type(args.method),
+        max_correspondence=args.max_correspondence,
+        relative_fitness=args.relative_fitness,
+        relative_rmse=args.relative_rmse,
+        max_iteration=args.max_iteration if args.max_iteration != 100000 else 30,
+        rejection_type=P.KernelLossFunctionType[args.kernel.upper()],
+        k_value=args.k_value,
+    )
+    result = icp_ops.icp(_as_point_cloud(first), _as_point_cloud(second), params,
+                         init_transform=_load_transform(args.init_transform))
+    # Local results replace the transform.
+    _save_transform(
+        result.transformation, args.output,
+        {"fitness": result.fitness, "inlier_rmse": result.inlier_rmse,
+         "num_iterations": result.num_iterations},
+    )
+
+
+def cmd_multiscale(args):
+    from gaussiansplattingregistration_tpu_torch.models import parameters as P
+    from gaussiansplattingregistration_tpu_torch.pipelines import multiscale as ms
+
+    first, second = _load_pair(args)
+    init = _load_transform(args.init_transform)
+    params = P.MultiScaleRegistrationParams(
+        registration_type=_icp_type(args.icp_type),
+        voxel_values=[float(v) for v in args.voxel_values.split(",")],
+        iter_values=[int(v) for v in args.iter_values.split(",")],
+        use_corresponding_pc=args.sparse_first is not None,
+    )
+    if args.use_mixture:
+        from gaussiansplattingregistration_tpu_torch.models.gaussian_cloud import GaussianCloud
+        from gaussiansplattingregistration_tpu_torch.ops import hem
+
+        if not isinstance(first, GaussianCloud) or not isinstance(second, GaussianCloud):
+            raise SystemExit("--use-mixture requires Gaussian PLY inputs")
+        mix_params = _mixture_params(args, max(len(params.voxel_values) - 1, 1))
+
+        def levels(cloud):
+            lvls = hem.create_mixture(cloud, mix_params, seed=args.seed)
+            clouds = hem.mixture_levels_to_clouds(lvls, cloud.sh_degree, device=args.device)
+            return [_as_point_cloud(c) for c in [cloud] + clouds]
+
+        result = ms.multiscale_mixture_registration(levels(first), levels(second), params,
+                                                    init_transform=init)
+    else:
+        sparse_src = sparse_tgt = None
+        if args.sparse_first and args.sparse_second:
+            from gaussiansplattingregistration_tpu_torch.utils import io as gio
+
+            sparse_src = gio.load_sparse_cloud(args.sparse_first, device=args.device)
+            sparse_tgt = gio.load_sparse_cloud(args.sparse_second, device=args.device)
+        result = ms.multiscale_voxel_registration(
+            _as_point_cloud(first), _as_point_cloud(second), params, init_transform=init,
+            sparse_source=sparse_src, sparse_target=sparse_tgt,
+        )
+    _save_transform(
+        result.transformation, args.output,
+        {"fitness": result.fitness, "inlier_rmse": result.inlier_rmse},
+    )
+
+
+def cmd_downsample(args):
+    from gaussiansplattingregistration_tpu_torch.ops import hem
+    from gaussiansplattingregistration_tpu_torch.utils import io as gio
+
+    cloud = gio.load_gaussian_cloud(args.input, device=args.device)
+    levels = hem.create_mixture(cloud, _mixture_params(args, args.cluster_level), seed=args.seed)
+    clouds = hem.mixture_levels_to_clouds(levels, cloud.sh_degree, device=args.device)
+    out = {"input_points": cloud.num_points, "levels": []}
+    for i, c in enumerate(clouds, start=1):
+        path = f"{args.output_prefix}_level{i}.ply"
+        gio.save_gaussian_cloud(c, path)
+        out["levels"].append({"level": i, "points": c.num_points, "path": path})
+    print(json.dumps(out))
 
 
 def _make_cli_camera(args, aabb_center, aabb_extent):
@@ -163,6 +306,36 @@ def cmd_render(args):
     print(json.dumps(out))
 
 
+def cmd_evaluate(args):
+    from gaussiansplattingregistration_tpu_torch.pipelines.evaluation import (
+        evaluate_registration,
+        load_cameras_json,
+    )
+    from gaussiansplattingregistration_tpu_torch.utils import io as gio
+
+    # "auto" is off until the sharded path is ported (with one device the
+    # JAX CLI's "auto" is off too).
+    if args.sharded == "on":
+        raise SystemExit(_SHARDED_SLICE)
+    first = gio.load_gaussian_cloud(args.first, device=args.device)
+    second = gio.load_gaussian_cloud(args.second, device=args.device)
+    result = evaluate_registration(
+        first, second, _load_transform(args.transform),
+        load_cameras_json(args.cameras, device=args.device), args.images_path,
+        background=[float(v) for v in args.background.split(",")], log_path=args.log,
+        use_lpips=not args.no_lpips, device=args.device,
+    )
+    print(json.dumps(result.as_log_dict()))
+
+
+def cmd_merge(args):
+    from gaussiansplattingregistration_tpu_torch.pipelines.merge import merge_from_paths
+
+    merged = merge_from_paths(args.first, args.second, _load_transform(args.transform),
+                              args.output, device=args.device)
+    print(json.dumps({"output": args.output, "num_points": merged.num_points}))
+
+
 def cmd_photometric(args):
     from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig
     from gaussiansplattingregistration_tpu_torch.pipelines.evaluation import (
@@ -210,6 +383,64 @@ def build_parser():
     add_device(sp)
     sp.set_defaults(fn=cmd_info)
 
+    sp = sub.add_parser("register", help="local ICP registration (global: a later slice)")
+    sp.add_argument("first")
+    sp.add_argument("second")
+    sp.add_argument("--method", default="point_to_point",
+                    choices=[*_ICP_TYPES, "ransac", "fgr"])
+    sp.add_argument("--init-transform")
+    sp.add_argument("--output")
+    sp.add_argument("--max-correspondence", type=float, default=5.0)
+    sp.add_argument("--relative-fitness", type=float, default=1e-6)
+    sp.add_argument("--relative-rmse", type=float, default=1e-6)
+    sp.add_argument("--max-iteration", type=int, default=100000)
+    sp.add_argument("--kernel", default="none", choices=list(_KERNELS))
+    sp.add_argument("--k-value", type=float, default=0.0)
+    sp.add_argument("--voxel-size", type=float, default=0.05)
+    sp.add_argument("--mutual-filter", action="store_true")
+    sp.add_argument("--ransac-n", type=int, default=3)
+    sp.add_argument("--confidence", type=float, default=0.999)
+    sp.add_argument("--checker-edge-length", type=float)
+    sp.add_argument("--checker-distance", type=float)
+    sp.add_argument("--checker-normal", type=float)
+    sp.add_argument("--fgr-max-correspondence", type=float, default=0.025)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--plane-inliers-first")
+    sp.add_argument("--plane-inliers-second")
+    add_device(sp)
+    sp.set_defaults(fn=cmd_register)
+
+    sp = sub.add_parser("multiscale", help="coarse-to-fine registration")
+    sp.add_argument("first")
+    sp.add_argument("second")
+    sp.add_argument("--icp-type", default="point_to_point", choices=list(_ICP_TYPES))
+    sp.add_argument("--voxel-values", default="0.1,0.05,0.01")
+    sp.add_argument("--iter-values", default="50,30,14")
+    sp.add_argument("--use-mixture", action="store_true")
+    sp.add_argument("--hem-reduction", type=float, default=3.0)
+    sp.add_argument("--distance-delta", type=float, default=3.0)
+    sp.add_argument("--color-delta", type=float, default=2.5)
+    sp.add_argument("--decay-rate", type=float, default=1.0)
+    sp.add_argument("--sparse-first")
+    sp.add_argument("--sparse-second")
+    sp.add_argument("--init-transform")
+    sp.add_argument("--output")
+    sp.add_argument("--seed", type=int, default=0)
+    add_device(sp)
+    sp.set_defaults(fn=cmd_multiscale)
+
+    sp = sub.add_parser("downsample", help="HEM Gaussian-mixture downsampling")
+    sp.add_argument("input")
+    sp.add_argument("output_prefix")
+    sp.add_argument("--hem-reduction", type=float, default=3.0)
+    sp.add_argument("--distance-delta", type=float, default=3.0)
+    sp.add_argument("--color-delta", type=float, default=2.5)
+    sp.add_argument("--decay-rate", type=float, default=1.0)
+    sp.add_argument("--cluster-level", type=int, default=3)
+    sp.add_argument("--seed", type=int, default=0)
+    add_device(sp)
+    sp.set_defaults(fn=cmd_downsample)
+
     sp = sub.add_parser("render", help="rasterize a cloud to PNG")
     sp.add_argument("input")
     sp.add_argument("output")
@@ -232,6 +463,29 @@ def build_parser():
                     help="render N turntable frames around the scene")
     sp.add_argument("--depth-output", help="also save a normalized depth map PNG")
     sp.set_defaults(fn=cmd_render)
+
+    sp = sub.add_parser("evaluate", help="photometric evaluation vs GT images")
+    sp.add_argument("first")
+    sp.add_argument("second")
+    sp.add_argument("--transform")
+    sp.add_argument("--cameras", required=True, help="cameras.json")
+    sp.add_argument("--images-path", required=True)
+    sp.add_argument("--log")
+    sp.add_argument("--background", default="0,0,0")
+    sp.add_argument("--no-lpips", action="store_true")
+    sp.add_argument("--sharded", default="auto", choices=["auto", "on", "off"],
+                    help="camera-sharded evaluation (not ported yet: on raises, "
+                         "auto is off)")
+    add_device(sp)
+    sp.set_defaults(fn=cmd_evaluate)
+
+    sp = sub.add_parser("merge", help="merge two clouds under a transform")
+    sp.add_argument("first")
+    sp.add_argument("second")
+    sp.add_argument("output")
+    sp.add_argument("--transform")
+    add_device(sp)
+    sp.set_defaults(fn=cmd_merge)
 
     sp = sub.add_parser("photometric", help="differentiable pose registration")
     sp.add_argument("first", help="cloud whose pose is optimized")

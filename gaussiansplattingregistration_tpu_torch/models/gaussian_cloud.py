@@ -150,6 +150,48 @@ class GaussianCloud:
             sh_degree=sh_degree, device=device,
         )
 
+    @classmethod
+    def from_mixture(cls, level, sh_degree: int, device=None) -> "GaussianCloud":
+        """Build from a HEM mixture level (`ops.hem.MixtureLevel`) on
+        `device` (default `cuda`). The covariance is eigendecomposed into
+        sqrt-eigenvalue scales and unit quaternions, so scale and rotation
+        agree with the covariance cache; linear opacities go back to
+        logits."""
+        dev = resolve_device(device)
+        cov6 = as_tensor(level.covariance, dev).reshape(-1, 6)
+        scales, quats = math3d.decompose_covariance(cov6)
+        n = cov6.shape[0]
+        opacities = as_tensor(level.opacities, dev).reshape(n, 1)
+        return cls.create(
+            xyz=as_tensor(level.xyz, dev).reshape(n, 3),
+            features_dc=as_tensor(level.colors, dev).reshape(n, 1, 3),
+            features_rest=as_tensor(level.features, dev).reshape(
+                n, sh_ops.num_sh_coeffs(sh_degree) - 1, 3),
+            opacity=math3d.inverse_sigmoid(torch.clamp(opacities, 1e-6, 1.0 - 1e-6)),
+            scaling=torch.log(torch.clamp_min(scales, 1e-10)),
+            rotation=quats,
+            sh_degree=sh_degree,
+            covariance=cov6,
+            device=dev,
+        )
+
+    def pad_to(self, n: int) -> "GaussianCloud":
+        """Pad to n splats with zero-opacity splats (logit -30, log-scale
+        -10, identity rotation), which never contribute to a render."""
+        cur = self.num_points
+        if cur >= n:
+            return self
+        fields = {}
+        for f in dataclasses.fields(self):
+            if f.name == "sh_degree":
+                continue
+            a = getattr(self, f.name)
+            fields[f.name] = torch.cat([a, a.new_zeros((n - cur,) + tuple(a.shape[1:]))])
+        fields["opacity"][cur:] = -30.0
+        fields["rotation"][cur:, 0] = 1.0
+        fields["scaling"][cur:] = -10.0
+        return GaussianCloud(sh_degree=self.sh_degree, **fields)
+
     # ---------------------------------------------------------- transforms
     def transform(self, transformation, rotate_sh: bool = True) -> "GaussianCloud":
         """Apply a 4x4 SE(3) transform to the whole cloud: means get R x + t,

@@ -13,6 +13,10 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-12
+# Matrices per torch.linalg.eigh call. On an H100 (torch 2.11, CUDA 12.8)
+# cuSOLVER's batched solver refuses a batch of 200k 3x3 matrices
+# (CUSOLVER_STATUS_INVALID_VALUE from its buffer-size query) where 10k pass.
+_EIGH_CHUNK = 8192
 
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -151,6 +155,16 @@ def transform_covariance(cov6: torch.Tensor, rotmat: torch.Tensor) -> torch.Tens
     return pack_symmetric(rotmat @ full @ rotmat.T)
 
 
+def symmetric_eigh(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`torch.linalg.eigh` of [..., 3, 3] symmetric matrices (ascending
+    eigenvalues), in chunks of `_EIGH_CHUNK` matrices."""
+    flat = m.reshape(-1, 3, 3)
+    if flat.shape[0] <= _EIGH_CHUNK:
+        return torch.linalg.eigh(m)
+    vals, vecs = zip(*(torch.linalg.eigh(c) for c in flat.split(_EIGH_CHUNK)))
+    return torch.cat(vals).reshape(m.shape[:-1]), torch.cat(vecs).reshape(m.shape)
+
+
 def decompose_covariance(cov6: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Packed covariances -> (scales [N,3], quats [N,4]) with Σ = R diag(s²) Rᵀ.
 
@@ -158,7 +172,7 @@ def decompose_covariance(cov6: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
     from the eigenvector basis with its determinant fixed to +1.
     """
     full = unpack_symmetric(cov6)
-    eigvals, eigvecs = torch.linalg.eigh(full)  # ascending
+    eigvals, eigvecs = symmetric_eigh(full)  # ascending
     scales = torch.sqrt(torch.clamp_min(eigvals, _EPS))
     det = torch.linalg.det(eigvecs)
     flip = torch.ones_like(eigvecs)

@@ -2,8 +2,9 @@
 
 Torch counterpart of `gaussiansplattingregistration_tpu/ops/metrics.py`:
 SSIM uses the 11x11 Gaussian window (sigma 1.5) applied per channel with a
-same-padded depthwise convolution; PSNR is 20 log10(1/sqrt(mse)). LPIPS is
-not ported yet: `all_metrics` takes an optional callable, as in JAX.
+same-padded depthwise convolution; PSNR is 20 log10(1/sqrt(mse)). LPIPS
+(`ops/lpips.py`) comes as a callable from `lpips_fn`, which `all_metrics`
+takes, as in JAX.
 
 On the card a float32 convolution goes through cuDNN, in TF32 unless
 `torch.backends.cudnn.allow_tf32` is off. The package turns it off at import
@@ -70,6 +71,21 @@ def ssim(
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
     )
     return torch.mean(ssim_map) if size_average else torch.mean(ssim_map, dim=(1, 2))
+
+
+def lpips_fn(device=None):
+    """The LPIPS callable (AlexNet; see ops/lpips.py for the weight order)
+    with its weights on `device` (default `cuda`). Its `source` attribute
+    names the live weights."""
+    from gaussiansplattingregistration_tpu_torch.ops import lpips as lpips_ops
+
+    params = lpips_ops.default_params(device)
+
+    def run(img1, img2):
+        return float(lpips_ops.lpips(img1, img2, params))
+
+    run.source = params.source  # type: ignore[attr-defined]
+    return run
 
 
 def all_metrics(img1: torch.Tensor, img2: torch.Tensor, lpips_callable=None) -> dict:

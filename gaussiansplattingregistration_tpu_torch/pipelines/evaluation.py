@@ -1,21 +1,64 @@
-"""Loaders shared by photometric registration and evaluation: a 3DGS
-`cameras.json` and ground-truth PNGs.
+"""Registration evaluation: photometric metrics against ground-truth images.
 
-Torch counterpart of the loaders in
-`gaussiansplattingregistration_tpu/pipelines/evaluation.py`. Images are
-read by the stdlib PNG reader (`utils/png.py`), so no imaging package is
-needed.
+Torch counterpart of `gaussiansplattingregistration_tpu/pipelines/evaluation.py`
+(the reference's `RegistrationEvaluator`): merge the two clouds under the
+current transform, render from each camera, compare to
+`<images_path>/<img_name>.png`, aggregate MSE/RMSE/SSIM/PSNR (+LPIPS), and
+write a JSON log with the reference's `EvaluationObject` schema. Also the
+loaders photometric registration shares: a 3DGS `cameras.json` and
+ground-truth PNGs, read by the stdlib PNG reader (`utils/png.py`), so no
+imaging package is needed.
+
+The camera-sharded variant (`evaluate_registration_sharded`) belongs to the
+multi-GPU part of the port and is not here yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
-from typing import List
+import os
+import sys
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from gaussiansplattingregistration_tpu_torch.models.camera import Camera
+from gaussiansplattingregistration_tpu_torch.models.gaussian_cloud import GaussianCloud
+from gaussiansplattingregistration_tpu_torch.ops import metrics as metrics_ops
+from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
+from gaussiansplattingregistration_tpu_torch.utils.device import resolve_device
 from gaussiansplattingregistration_tpu_torch.utils.png import read_png
+
+
+@dataclasses.dataclass
+class EvaluationResult:
+    """Aggregated metrics + per-camera details + error list."""
+
+    mse: float
+    rmse: float
+    ssim: float
+    psnr: float
+    lpips: Optional[float]
+    per_camera: List[dict]
+    error_list: List[str]
+    # which LPIPS weights were live ("torch", "npz:<name>" or "random", the
+    # documented random-feature fallback; see ops/lpips.py)
+    lpips_weights: Optional[str] = None
+
+    def as_log_dict(self, registration_data: Optional[dict] = None) -> dict:
+        """The JSON log (the reference's `EvaluationObject.__dict__`)."""
+        return {
+            "registration_data": registration_data or {},
+            "mse": self.mse,
+            "rmse": self.rmse,
+            "ssim": self.ssim,
+            "psnr": self.psnr,
+            "lpips": self.lpips,
+            "lpips_weights": self.lpips_weights,
+            "error_list": self.error_list,
+        }
 
 
 def load_image(path: str) -> np.ndarray:
@@ -34,3 +77,76 @@ def load_cameras_json(path: str, device=None) -> List[Camera]:
     with open(path) as f:
         entries = json.load(f)
     return [Camera.from_json_entry(e, device=device) for e in entries]
+
+
+def evaluate_registration(
+    cloud_first: GaussianCloud,
+    cloud_second: GaussianCloud,
+    transformation,
+    cameras: Sequence[Camera],
+    images_path: str,
+    background=(0.0, 0.0, 0.0),
+    log_path: Optional[str] = None,
+    registration_data: Optional[dict] = None,
+    use_lpips: bool = True,
+    config: RasterizeConfig = RasterizeConfig(),
+    progress_callback: Optional[Callable[[int], None]] = None,
+    device=None,
+) -> EvaluationResult:
+    """Render the merged cloud from every camera on `device` (default
+    `cuda`) and score it against the GT images. A missing image, or one
+    whose size differs from its camera's, goes to `error_list`."""
+    dev = resolve_device(device)
+    merged = cloud_first.merge(cloud_second, transformation)
+    lpips_callable = metrics_ops.lpips_fn(dev) if use_lpips else None
+    if getattr(lpips_callable, "source", None) == "random":
+        print(
+            "WARNING: LPIPS is using the untrained random-feature fallback "
+            "(no trained AlexNet weights found — set GSR_LPIPS_WEIGHTS or "
+            "install the `lpips` package). Values are NOT comparable to "
+            "published trained-LPIPS numbers.",
+            file=sys.stderr,
+        )
+
+    per_camera: List[dict] = []
+    errors: List[str] = []
+    for i, camera in enumerate(cameras):
+        if progress_callback is not None:
+            progress_callback(int((i + 1) / len(cameras) * 100))
+        image_path = os.path.join(images_path, camera.image_name + ".png")
+        try:
+            gt = load_image(image_path)
+        except OSError as e:
+            errors.append(str(e))
+            continue
+        if gt.shape[:2] != (camera.height, camera.width):
+            errors.append(
+                f"{camera.image_name}: image {gt.shape[:2]} != camera "
+                f"({camera.height}, {camera.width})"
+            )
+            continue
+        rgb, _, _ = rasterize(merged, camera, background=background, config=config, device=dev)
+        m = metrics_ops.all_metrics(torch.clamp(rgb, 0.0, 1.0), torch.as_tensor(gt, device=dev),
+                                    lpips_callable)
+        m["image"] = camera.image_name
+        per_camera.append(m)
+
+    if per_camera:
+        agg = {k: float(np.mean([m[k] for m in per_camera]))
+               for k in ("mse", "rmse", "ssim", "psnr")}
+        lp = (float(np.mean([m["lpips"] for m in per_camera]))
+              if lpips_callable is not None else None)
+    else:
+        agg = {k: float("nan") for k in ("mse", "rmse", "ssim", "psnr")}
+        lp = None
+
+    result = EvaluationResult(
+        mse=agg["mse"], rmse=agg["rmse"], ssim=agg["ssim"], psnr=agg["psnr"],
+        lpips=lp, per_camera=per_camera, error_list=errors,
+        lpips_weights=getattr(lpips_callable, "source", None),
+    )
+    if log_path:
+        os.makedirs(os.path.dirname(os.path.abspath(log_path)), exist_ok=True)
+        with open(log_path, "w") as f:
+            json.dump(result.as_log_dict(registration_data), f, indent=2)
+    return result

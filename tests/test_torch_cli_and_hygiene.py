@@ -210,7 +210,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     sources = list(_port_sources())
     assert len(sources) > 15
     for mod in (("ops", "se3.py"), ("ops", "metrics.py"), ("pipelines", "photometric.py"),
-                ("pipelines", "evaluation.py"), ("utils", "png.py")):
+                ("pipelines", "evaluation.py"), ("utils", "png.py"), ("utils", "native.py"),
+                ("ops", "hem.py"), ("ops", "knn.py"), ("ops", "icp.py"), ("ops", "lpips.py")):
         assert os.path.join(PORT, *mod) in sources
     offenders = [
         (os.path.relpath(path, REPO), mod)
@@ -236,3 +237,60 @@ def test_rasterize_raises_without_cuda_and_cpu_request(monkeypatch):
             cam.viewmat, cam.intrinsics, 64, 48, cloud.sh_degree, (0.0, 0.0, 0.0))
     rgb, _, _ = TR.rasterize(cloud, cam, device="cpu")
     assert rgb.device.type == "cpu" and rgb.shape == (48, 64, 3)
+
+
+def test_native_bridge_never_writes_the_jax_library(tmp_path, monkeypatch):
+    """The port's bridge builds native/hem.cpp into its own build directory
+    (here a temporary one) and leaves native/libgsrhem.so, the JAX
+    package's file, as it was."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the native library cannot be built")
+    from gaussiansplattingregistration_tpu_torch.utils import native
+
+    jax_lib = os.path.join(REPO, "native", "libgsrhem.so")
+    before = (os.path.getmtime(jax_lib), os.path.getsize(jax_lib))
+    build_dir = tmp_path / "_build"
+    default = native.library_path()
+    monkeypatch.setattr(native, "BUILD_DIR", str(build_dir))
+    native.load_library()
+    rng = np.random.default_rng(0)
+    n = 64
+    cov = np.tile(np.array([0.01, 0, 0, 0.01, 0, 0.01], np.float32), (n, 1))
+    out = native.hem_cluster_level_native(
+        rng.uniform(-0.2, 0.2, (n, 3)), rng.uniform(0, 1, (n, 3)), cov, np.full(n, 0.5),
+        np.ones(n), np.zeros((n, 0)), np.tile([0.0, 0.0, 0.001], (n, 1)),
+        rng.random(n) < 0.3, 3.0, 2.5, 1.0)
+    assert 0 < out[0].shape[0] < n
+    assert [p.name for p in build_dir.iterdir()] == [os.path.basename(native.library_path())]
+    assert (os.path.getmtime(jax_lib), os.path.getsize(jax_lib)) == before
+    assert default.startswith(os.path.join(PORT, "_build") + os.sep)
+
+
+def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """Loaders, evaluation, LPIPS weights and mixture clouds default to
+    `cuda` and raise without a card; `device="cpu"` runs."""
+    from gaussiansplattingregistration_tpu_torch.ops import hem, lpips
+    from gaussiansplattingregistration_tpu_torch.pipelines import evaluation, merge
+
+    cloud = tio.load_gaussian_cloud(os.path.join(DATA, "demo_source.ply"), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    level = hem.MixtureLevel(xyz=np.zeros((1, 3)), colors=np.zeros((1, 3)),
+                             opacities=np.full(1, 0.5), covariance=np.array([[1e-2, 0, 0, 1e-2,
+                                                                              0, 1e-2]]),
+                             features=np.zeros((1, 0)))
+    calls = [
+        lambda d: tio.load_point_cloud_any(os.path.join(DATA, "demo_source.ply"), device=d),
+        lambda d: merge.merge_from_paths(os.path.join(DATA, "demo_source.ply"),
+                                         os.path.join(DATA, "demo_target.ply"), np.eye(4),
+                                         str(tmp_path / f"m_{d}.ply"), device=d),
+        lambda d: evaluation.evaluate_registration(cloud, cloud, np.eye(4), [], str(tmp_path),
+                                                   use_lpips=False, device=d),
+        lambda d: lpips.default_params(d),
+        lambda d: hem.mixture_levels_to_clouds([level], 0, device=d),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call(None)
+        call("cpu")
