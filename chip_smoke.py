@@ -14,9 +14,13 @@ torch on the card): neighbor search at 100k points against the CPU, ICP
 (config 1, brute and grid), HEM (config 3, 200k splats) and the mixture
 multiscale registration on its levels, and tests/test_e2e_cli.py's flow
 through the port's CLI, whose evaluation is driven once more in this
-process with the kernels' launch counts. It prints one JSON line per
-phase. The last lines are the `kernels` record, the card's name and power
-limit, and `{"ok": true, "device": {...}}`.
+process with the kernels' launch counts. Then global registration (bench.py
+config 2 and a 1M-point surface), plane fitting and merging, the viewer
+serving the bench cloud (its frames and composite_fwd held against the
+plain path on the viewer's own inputs), and their CLI. It prints one JSON
+line per phase. The last lines are the `kernels` record (one entry per
+kernel and main path), the card's name and power limit, and
+`{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one GPU
 
@@ -65,6 +69,13 @@ OPS_VISIBLE_BWD = 55
 
 # Bench scene and config (bench.py): 1M splats, SH degree 0, 1280x720, 70°.
 WIDTH, HEIGHT, N_SPLATS = 1280, 720, 1_000_000
+# Sizes of the registration phases: HEM's splats (bench.py config 3), the
+# user-scale global registration surface, the 1M-point planar scene's planes
+# and noise, and each plane of the merging scene (its noise a fifth of it).
+HEM_SPLATS = 200_000
+GLOBAL_LARGE_POINTS = 1_000_000
+PLANE_POINTS, PLANE_NOISE = 450_000, 100_000
+MERGE_PLANE_POINTS = 100_000
 
 
 def emit(obj) -> None:
@@ -469,6 +480,25 @@ def pair_counts(gT, cnt, ts: int, config, tiles_per_step: int = 256) -> dict:
     return n
 
 
+def fwd_bound(gT, cnt, out, ts: int, config) -> dict:
+    """Least time for the forward kernel's work on (gT, cnt), whatever its
+    design: the whole formula on this frame's visible pairs against reading
+    the function's inputs once and writing its outputs once. The function
+    reads only the entries before min(count, live) of each tile
+    (`read_entries`; nothing past them changes an output) and the counts;
+    it writes [T, P, 5] and live. `out` is the kernel's output on them."""
+    pairs = pair_counts(gT, cnt, ts, config)
+    ops_ms = pairs["visible"] * (OPS_TEST + OPS_VISIBLE_FWD) / PEAK_FP32_FLOPS * 1e3
+    read_entries = int(torch.minimum(cnt[:, 0], out[3]).sum())
+    entry_bytes = read_entries * gT.shape[1] * 4
+    nbytes = entry_bytes + cnt.numel() * 4 + gT.shape[0] * (ts * ts * 5 + 1) * 4
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"pairs": pairs, "read_entries": read_entries, "entry_bytes": entry_bytes,
+            "bytes": nbytes, "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
 def bwd_errs(got, want):
     """Per channel of d_gT: max abs error and the twin's max abs."""
     err = (got - want).abs().amax(dim=(0, 2))
@@ -651,7 +681,7 @@ def icp_phase(dev, surf, vol) -> dict:
     return rec
 
 
-def hem_phase(dev, n: int = 200_000):
+def hem_phase(dev):
     """bench.py config 3 on the card: 200k splats (SH degree 1, scales
     0.04-0.10), cluster_level=3, seed 0, twice (the second timed; the level
     sizes equal, each cut >= 1.8x); one level with injected parent flags at
@@ -660,6 +690,7 @@ def hem_phase(dev, n: int = 200_000):
     from gaussiansplattingregistration_tpu_torch.models.parameters import GaussianMixtureParams
     from gaussiansplattingregistration_tpu_torch.ops import hem, knn
 
+    n = HEM_SPLATS
     cloud = random_cloud(np.random.default_rng(3), n, 1, (0.04, 0.10), dev)
     params = GaussianMixtureParams(cluster_level=3)
     t0 = time.perf_counter()
@@ -859,6 +890,532 @@ def cli_e2e_phase(dev, raster_cuda, tmp) -> dict:
                              f"expected one composite_fwd per camera")
     if not abs(res.psnr - metrics["psnr"]) < 1e-4:
         raise AssertionError(f"evaluate in process {res.psnr} vs cli {metrics['psnr']}")
+    return rec
+
+
+def pose_err_parts(T_est, T_true):
+    """(rotation error in rad, translation error) of T_est against T_true,
+    as tests/test_goldens.py measures them."""
+    Te, Tt = np.asarray(T_est, np.float64), np.asarray(T_true, np.float64)
+    cos = (np.trace(Te[:3, :3] @ Tt[:3, :3].T) - 1) / 2
+    return float(np.arccos(np.clip(cos, -1, 1))), float(np.linalg.norm(Te[:3, 3] - Tt[:3, 3]))
+
+
+def timed_s(fn):
+    """(seconds, result) of fn() ending at a device sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def percent_fpfh(f) -> torch.Tensor:
+    """Each 11-bin FPFH sub-histogram as percentages of its sum (f64)."""
+    f = f.double().reshape(len(f), 3, 11)
+    return (f / f.sum(-1, keepdim=True).clamp_min(1e-30) * 100.0).reshape(len(f), 33)
+
+
+def feature_nn_mismatches(query, data, idx_a, idx_b) -> dict:
+    """Rows where two feature-space nearest-neighbor searches disagree,
+    split into near ties (the two candidates' f64 squared distances within
+    1e-6 of |q|^2 + |d|^2, the Gram form's cancellation) and the rest."""
+    q, d = query.double().cpu(), data.double().cpu()
+    idx_a, idx_b = idx_a.cpu(), idx_b.cpu()
+    rows = torch.nonzero(idx_a != idx_b)[:, 0]
+    scale = 1e-6 * float((q * q).sum(1).max() + (d * d).sum(1).max())
+    da = ((q[rows] - d[idx_a[rows]]) ** 2).sum(1)
+    db = ((q[rows] - d[idx_b[rows]]) ** 2).sum(1)
+    ties = int(((da - db).abs() <= scale).sum())
+    return {"mismatches": int(rows.numel()), "near_ties": ties,
+            "non_near_tie_mismatches": int(rows.numel()) - ties}
+
+
+CFG2_OFFSET, CFG2_ANGLE = (0.3, -0.2, 0.15), 0.4
+
+
+def global_case(dev, n: int, voxel: float, with_refine: bool) -> dict:
+    """bench.py config 2 at n points (`two_clouds(rng(2), n, ...)`): FPFH +
+    RANSAC (edge-length 0.9 and distance 1.5 voxel checkers, 100000
+    hypotheses at most, confidence 0.999), then colored-ICP refinement at
+    0.1 for 30 iterations; a warm-up run at seed 0, the timed run at seed 1,
+    as bench.py. Then the flood run (16384 hypotheses, confidence 1.0) and
+    FGR on the same pair. Returns the record, each cloud's preprocessing
+    (downsampled cloud, FPFH) and the RANSAC parameters."""
+    from gaussiansplattingregistration_tpu_torch.models import parameters as P
+    from gaussiansplattingregistration_tpu_torch.ops import global_registration as gr
+    from gaussiansplattingregistration_tpu_torch.ops import icp
+
+    src, tgt, col, T_src = two_clouds(np.random.default_rng(2), n, offset=CFG2_OFFSET,
+                                      angle=CFG2_ANGLE, colors=True)
+    truth = np.linalg.inv(T_src)
+    source, target = point_cloud(src, col, dev), point_cloud(tgt, col, dev)
+    ransac = P.RANSACRegistrationParams(
+        voxel_size=voxel, max_iteration=100_000, confidence=0.999,
+        checkers=(P.CorrespondenceChecker("edge_length", 0.9),
+                  P.CorrespondenceChecker("distance", 1.5 * voxel)))
+    refine = P.LocalRegistrationParams(registration_type=P.LocalRegistrationType.ICP_COLOR,
+                                       max_correspondence=0.1, max_iteration=30)
+
+    def run(seed):
+        t_g, g = timed_s(lambda: gr.ransac_registration(source, target, ransac, seed=seed))
+        t_r, r = timed_s(lambda: icp.icp(source, target, refine,
+                                         init_transform=g.transformation)) \
+            if with_refine else (0.0, None)
+        return g, r, t_g, t_r
+
+    cold, _ = timed_s(lambda: run(0))
+    wall, (g, r, t_g, t_r) = timed_s(lambda: run(1))
+    rec = {"points": n, "voxel": voxel, "cold_s": cold, "warm_s": wall, "ransac_s": t_g,
+           "ransac_fitness": g.fitness, "ransac_rmse": g.inlier_rmse,
+           "ransac_hypotheses": g.num_iterations,
+           "ransac_pose_err": pose_err_parts(g.transformation, truth)}
+    if with_refine:
+        plan = icp.correspondence_plan(source, target, refine.max_correspondence)
+        rec.update({"refine_s": t_r, "refine_path": "brute" if plan is None else "grid",
+                    "refine_fitness": r.fitness,
+                    "pose_err": pose_err_parts(r.transformation, truth)})
+    pre, prepared = {}, {}
+    for name, pc in (("source", source), ("target", target)):
+        dt, prepared[name] = timed_s(lambda pc=pc: gr.preprocess_point_cloud(pc, voxel))
+        pre[name] = {"ms": dt * 1e3, "downsampled": prepared[name][0].num_points}
+    rec["preprocess"] = pre
+    # bench.py's flood run: its confidence 1.0 is still reached once a
+    # hypothesis scores fitness 1.0, so the search loop alone is also timed
+    # over 16384 hypotheses with the exit disabled (confidence 2).
+    flood = dataclasses.replace(ransac, max_iteration=16384, confidence=1.0)
+    gr.ransac_registration(source, target, flood, seed=0)
+    dt, gf = timed_s(lambda: gr.ransac_registration(source, target, flood, seed=1))
+    (sd, sf), (td, tf) = prepared["source"], prepared["target"]
+    corr = gr._feature_correspondences(sf, tf, False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+
+    def search():
+        return gr._ransac_search(gen, sd.points, td.points, sd.normals, td.normals, *corr,
+                                 ransac.max_correspondence, 2.0, 3, 512, 32,
+                                 *gr._checker_spec(ransac))
+
+    search()
+    dt_search, (_, _, _, total) = timed_s(search)
+    rec["flood"] = {"hypotheses": gf.num_iterations, "wall_s": dt,
+                    "hypotheses_per_s": gf.num_iterations / dt,
+                    "search_only_hypotheses": total, "search_only_s": dt_search,
+                    "search_only_hypotheses_per_s": total / dt_search}
+    fgr = P.FGRRegistrationParams(voxel_size=voxel)
+    gr.fgr_registration(source, target, fgr, seed=0)
+    dt, f = timed_s(lambda: gr.fgr_registration(source, target, fgr, seed=1))
+    rec["fgr"] = {"warm_s": dt, "fitness": f.fitness, "rmse": f.inlier_rmse,
+                  "pose_err": pose_err_parts(f.transformation, truth)}
+    return rec, prepared, ransac
+
+
+def global_phase(dev) -> dict:
+    """Global registration on the card: bench.py config 2 (50k points, voxel
+    0.05) with its refinement, the same surface at 1M points and voxel 0.02
+    (no refinement: colored ICP at a 0.1 gate on 1M points is a brute
+    1M x 1M sweep per iteration), then card against CPU on config 2's
+    downsampled source: FPFH (percentage scale, 1e-4, bin-edge points
+    excused and counted, at most 1% of points off by more), the feature
+    correspondences (no mismatch but near
+    ties) and one injected hypothesis batch (equal fitness vectors, the
+    best T within 1e-4). Config 2's refined pose and FGR's must lie in the
+    goldens' basin: rotation < 0.15 rad, translation < 2.5 voxels."""
+    from gaussiansplattingregistration_tpu_torch.ops import features
+    from gaussiansplattingregistration_tpu_torch.ops import global_registration as gr
+
+    rec = {}
+    rec["config2_50k"], prepared, ransac = global_case(dev, 50_000, 0.05, True)
+    rec["surface_1m"], _, _ = global_case(dev, GLOBAL_LARGE_POINTS, 0.02, False)
+
+    (down, fpfh), (tdown, tfpfh) = prepared["source"], prepared["target"]
+    pts, nrm = down.points.cpu(), down.normals.cpu()
+    want = features.compute_fpfh(pts, nrm, radius=0.25, max_nn=100)
+    excused = features.near_bin_edge(pts, nrm, 0.25, 100)
+    err = (percent_fpfh(fpfh.cpu()) - percent_fpfh(want)).abs().amax(dim=1)
+    card_cpu = {"points": int(pts.shape[0]), "fpfh_excused_bin_edge_points": int(excused.sum()),
+                "fpfh_points_over_1e-4": int((err > 1e-4).sum()),
+                "fpfh_max_pct_err": float(err.max()),
+                "fpfh_max_pct_err_not_excused": float(err[~excused].max()),
+                "fpfh_failing_points": int(((err > 1e-4) & ~excused).sum())}
+    idx_card = gr._feature_correspondences(fpfh, tfpfh, False)[0]
+    idx_cpu = gr._feature_correspondences(fpfh.cpu(), tfpfh.cpu(), False)[0]
+    card_cpu["correspondences"] = feature_nn_mismatches(fpfh, tfpfh, idx_card, idx_cpu)
+    samples = np.random.default_rng(9).integers(0, down.num_points, (512, 3))
+    outs = []
+    for d in (dev, "cpu"):
+        args = [a.to(d) for a in (down.points, tdown.points, down.normals, tdown.normals,
+                                  idx_card, torch.ones(down.num_points, dtype=torch.bool))]
+        outs.append(gr._eval_hypotheses(None, *args, 0.075, 3, 512, *gr._checker_spec(ransac),
+                                        samples=samples))
+    fit_card, fit_cpu = outs[0][0].cpu(), outs[1][0]
+    best = int(torch.argmax(fit_card))
+    card_cpu["injected_batch"] = {
+        "fitness_equal": bool(torch.equal(fit_card, fit_cpu)),
+        "passing_hypotheses": int((fit_cpu >= 0).sum()),
+        "best_index_equal": best == int(torch.argmax(fit_cpu)),
+        "best_T_max_abs_gap": float((outs[0][2][best].cpu() - outs[1][2][best]).abs().max())}
+    rec["card_vs_cpu_config2"] = card_cpu
+
+    c2 = rec["config2_50k"]
+    basin = [("config2 refined", c2["pose_err"]), ("config2 FGR", c2["fgr"]["pose_err"])]
+    for what, (ang, trn) in basin:
+        if not (ang < 0.15 and trn < 2.5 * 0.05):
+            raise AssertionError(f"{what} pose error {ang, trn} outside the basin: {rec}")
+    inj = card_cpu["injected_batch"]
+    if (card_cpu["fpfh_failing_points"] or card_cpu["fpfh_points_over_1e-4"] > 0.01 * len(err)
+            or card_cpu["correspondences"]["non_near_tie_mismatches"]
+            or not inj["fitness_equal"] or not inj["best_index_equal"]
+            or not inj["best_T_max_abs_gap"] <= 1e-4):
+        raise AssertionError(f"global registration on the card and the CPU disagree: {card_cpu}")
+    return rec
+
+
+def planar_scene(rng, n_plane: int, n_noise: int):
+    """tests/test_planes.py's planar scene (its draws, in its order): two
+    perpendicular patches, z ~ 0 and y ~ 1, and off-plane noise, as numpy
+    (xyz, rgb, opacity logits, log-scales, quaternions), with the index
+    ranges of the two planes."""
+    a = np.column_stack([rng.uniform(-1, 1, (n_plane, 2)),
+                         np.zeros(n_plane) + 0.003 * rng.normal(size=n_plane)])
+    b = np.column_stack([rng.uniform(-1, 1, n_plane),
+                         np.full(n_plane, 1.0) + 0.003 * rng.normal(size=n_plane),
+                         rng.uniform(-1, 1, n_plane)])
+    noise = rng.uniform(-1, 1, (n_noise, 3)) + np.array([0, 3.0, 0])
+    xyz = np.vstack([a, b, noise]).astype(np.float32)
+    n = xyz.shape[0]
+    rgb = 0.5 + 0.3 * np.sin(3.0 * xyz)
+    opacity = rng.normal(size=(n, 1)).astype(np.float32)
+    scaling = np.log(rng.uniform(0.02, 0.05, size=(n, 3))).astype(np.float32)
+    rotation = rng.normal(size=(n, 4)).astype(np.float32)
+    return xyz, rgb, opacity, scaling, rotation, (np.arange(n_plane),
+                                                 np.arange(n_plane, 2 * n_plane))
+
+
+def planar_cloud(rng, n_plane, n_noise, dev):
+    from gaussiansplattingregistration_tpu_torch.models.gaussian_cloud import GaussianCloud
+
+    xyz, rgb, opacity, scaling, rotation, planes = planar_scene(rng, n_plane, n_noise)
+    c0 = 0.28209479177387814
+    cloud = GaussianCloud.create(xyz, ((rgb - 0.5) / c0)[:, None, :].astype(np.float32),
+                                 np.zeros((len(xyz), 0, 3), np.float32), opacity, scaling,
+                                 rotation, sh_degree=0, device=dev)
+    return cloud, planes
+
+
+def planes_phase(dev) -> dict:
+    """Plane fitting and plane merging on the card: `fit_planes` on the
+    planar scene at 1M points (two 450k planes, 100k noise; plane_count 2,
+    300 iterations), given the scene's normals (estimating them would be a
+    brute k=30 search over 1M points); card against CPU with injected
+    samples at 20k points (estimated normals); `merge_plane_inliers` on a
+    220k-point scene (2 x 100k + 20k, cluster_level 3), twice."""
+    from gaussiansplattingregistration_tpu_torch.models.parameters import (
+        GaussianMixtureParams,
+        PlaneFittingParams,
+    )
+    from gaussiansplattingregistration_tpu_torch.models.point_cloud import PointCloud
+    from gaussiansplattingregistration_tpu_torch.ops import normals as normals_ops
+    from gaussiansplattingregistration_tpu_torch.ops import plane_fitting as pf
+    from gaussiansplattingregistration_tpu_torch.pipelines import planes as planes_ops
+
+    n_plane, n_noise, n_merge = PLANE_POINTS, PLANE_NOISE, MERGE_PLANE_POINTS
+    params = PlaneFittingParams(plane_count=2, iterations=300, distance_threshold=0.02,
+                                normal_threshold=0.8, min_distance=0.2)
+    rng = np.random.default_rng(11)
+    xyz, *_, (idx_a, idx_b) = planar_scene(rng, n_plane, n_noise)
+    nrm = np.zeros_like(xyz)
+    nrm[idx_a, 2] = 1.0
+    nrm[idx_b, 1] = 1.0
+    off = rng.normal(size=(n_noise, 3))
+    nrm[2 * n_plane:] = off / np.linalg.norm(off, axis=1, keepdims=True)
+    pc = PointCloud(points=torch.as_tensor(xyz, device=dev), normals=torch.as_tensor(
+        nrm.astype(np.float32), device=dev))
+    pf.fit_planes(pc, params, seed=0)
+    wall, (coef, lists) = timed_s(lambda: pf.fit_planes(pc, params, seed=0))
+    truth = {"z~0": (np.array([0, 0, 1.0]), idx_a), "y~1": (np.array([0, 1.0, 0]), idx_b)}
+    found = {}
+    for c, ix in zip(coef, lists):
+        name = max(truth, key=lambda k: abs(float(np.dot(c[:3], truth[k][0]))))
+        found[name] = {"inliers": int(len(ix)),
+                       "true_plane_inliers": int(np.intersect1d(ix, truth[name][1]).size),
+                       "normal_angle_rad": float(np.arccos(min(1.0, abs(float(
+                           np.dot(c[:3], truth[name][0])))))), "plane": c.tolist()}
+    rec = {"fit_1m": {"points": len(xyz), "warm_s": wall, "planes": found}}
+    if sorted(found) != ["y~1", "z~0"] or any(
+            f["true_plane_inliers"] < 0.95 * n_plane or f["normal_angle_rad"] > 0.05
+            for f in found.values()):
+        raise AssertionError(f"fit_planes at 1M points: {rec}")
+
+    small, _ = planar_cloud(np.random.default_rng(12), 9_000, 2_000, dev)
+    pts = small.xyz
+    spc = PointCloud(points=pts, normals=normals_ops.estimate_normals(pts))
+    draws = [np.random.default_rng(13 + p).integers(0, len(pts), (300, 3)) for p in range(2)]
+    outs = [pf.fit_planes(PointCloud(points=spc.points.to(d), normals=spc.normals.to(d)),
+                          params, samples=draws) for d in (dev, "cpu")]
+    rec["injected_20k"] = {
+        "planes": len(outs[0][0]),
+        "plane_max_abs_gap": max(float(np.abs(a - b).max()) for a, b in zip(outs[0][0],
+                                                                            outs[1][0])),
+        "inlier_sets_equal": len(outs[0][1]) == len(outs[1][1]) and all(
+            np.array_equal(a, b) for a, b in zip(outs[0][1], outs[1][1])),
+        "inlier_counts": [len(ix) for ix in outs[0][1]]}
+    if not (rec["injected_20k"]["planes"] == 2 and rec["injected_20k"]["inlier_sets_equal"]
+            and rec["injected_20k"]["plane_max_abs_gap"] <= 1e-5):
+        raise AssertionError(f"fit_planes on the card and the CPU: {rec['injected_20k']}")
+
+    cloud, (ia, ib) = planar_cloud(np.random.default_rng(14), n_merge, n_merge // 5, dev)
+    mparams = GaussianMixtureParams(cluster_level=3)
+    first = planes_ops.merge_plane_inliers(cloud, [ia, ib], mparams, seed=0)
+    wall, levels = timed_s(lambda: planes_ops.merge_plane_inliers(cloud, [ia, ib], mparams,
+                                                                   seed=0))
+    same = all(torch.equal(a.xyz, b.xyz) and torch.equal(a.covariance, b.covariance)
+               for a, b in zip(first, levels))
+    rec["merge_220k"] = {"points": cloud.num_points, "warm_s": wall,
+                         "level_sizes": [c.num_points for c in levels],
+                         "runs_equal": same}
+    if not same or not all(n_merge // 5 < c.num_points < cloud.num_points for c in levels):
+        raise AssertionError(f"merge_plane_inliers: {rec['merge_220k']}")
+    return rec
+
+
+def http_get(url: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def viewer_phase(dev, raster_cuda) -> tuple:
+    """The viewer on the card: `serve` the 1M-splat bench cloud on port 0
+    at 1280x720 (backend cuda, the viewer's default config: K = 256); fetch
+    the page, the state and six frames (default view, yaw, pitch, roll,
+    pan, zoom), each decoded; every frame not background, consecutive
+    frames different, one composite_fwd launch per frame and no backward; a
+    w=nan request answers 500 and the server answers after it. Then the
+    default and the zoomed view against the plain path on the card: the
+    frame against backend "torch" within 1e-4, and composite_fwd against
+    its twin on that view's own kernel inputs at the bench shapes'
+    tolerances (rgb/alpha 1e-4, depth 4e-4, live equal). Returns (record,
+    the viewer's `kernels` entry for composite_fwd: its launches in the six
+    frames, its error on the viewer's inputs, and its device time, plain
+    time and bound on the default view's)."""
+    from gaussiansplattingregistration_tpu_torch.pipelines import viewer
+    from gaussiansplattingregistration_tpu_torch.utils.png import decode_png
+
+    cloud = bench_cloud(dev)
+    width, height = WIDTH, HEIGHT
+    server, scene = viewer.serve(cloud, port=0, width=width, height=height, device=dev)
+    try:
+        base = "http://%s:%d" % server.server_address[:2]
+        page = http_get(base + "/")
+        state = http_get(base + "/state")
+        views = ["", "yaw=0.6", "pitch=0.4", "roll=30", "panx=300&pany=-200", "zoom=-10"]
+        http_get(base + "/render?w=256&h=256")           # warm-up, not counted
+        reset_launches(raster_cuda)
+        frames, ms = [], []
+        for v in views:
+            t0 = time.perf_counter()
+            code, body = http_get(f"{base}/render?w={width}&h={height}&{v}")
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if code != 200:
+                raise AssertionError(f"viewer frame {v!r}: HTTP {code}: {body[:200]!r}")
+            frames.append(decode_png(body).astype(np.int16))
+        launches = read_launches(raster_cuda)
+        bad_code, _ = http_get(base + "/render?w=nan&h=96")
+        after_code, _ = http_get(base + "/render?w=128&h=96")
+    finally:
+        server.shutdown()
+        server.server_close()
+    # A request's parts: the default view's frame alone, and its PNG encode.
+    from gaussiansplattingregistration_tpu_torch.ops.rasterize import rasterize
+    from gaussiansplattingregistration_tpu_torch.utils.png import encode_png
+
+    cam = scene.camera_for({}, width, height)
+    render_ms = cuda_ms(lambda: rasterize(scene.cloud, cam, background=scene.background,
+                                          config=scene.config, device=dev), iters=5) \
+        if dev.type == "cuda" else None
+    t0 = time.perf_counter()
+    encode_png(frames[0].astype(np.uint8))
+    encode_ms = (time.perf_counter() - t0) * 1e3
+
+    cfg, ts = scene.config, scene.config.tile_size
+    tcfg = dataclasses.replace(cfg, backend="torch")
+    bg = torch.tensor(scene.background, device=dev)
+    parity, entry = {}, {"launches": launches["composite_fwd"], "max_abs_err": 0.0}
+    for name, q in (("default", {}), ("zoom", {"zoom": "-10"})):
+        cam = scene.camera_for(q, width, height)
+        rgb_cuda = rasterize(scene.cloud, cam, background=scene.background, config=cfg,
+                             device=dev)[0]
+        rgb_torch = rasterize(scene.cloud, cam, background=scene.background, config=tcfg,
+                              device=dev)[0]
+        c = scene.cloud
+        inputs = kernel_inputs((c.xyz, c.get_covariance(), c.get_opacity[:, 0], c.get_features,
+                                cam.viewmat, cam.intrinsics, width, height, c.sh_degree, bg),
+                               cfg)
+        gT, cnt = inputs["gT"], inputs["cnt"]
+        got = raster_cuda.composite_tiles(gT, cnt, ts, cfg)
+        torch.cuda.synchronize()
+        want = raster_cuda.composite_tiles_reference(gT, cnt, ts, cfg)
+        errs, live_eq = max_errs(got, want)
+        parity[name] = {"frame_max_abs_err_vs_torch_backend": float(
+                            (rgb_cuda - rgb_torch).abs().max()),
+                        "tiles": int(gT.shape[0]), "K": int(gT.shape[2]),
+                        "kernel_max_abs_err": {"rgb": errs[0], "alpha": errs[1],
+                                               "depth": errs[2]},
+                        "live_equal": live_eq}
+        entry["max_abs_err"] = max(entry["max_abs_err"], *errs)
+        if not (parity[name]["frame_max_abs_err_vs_torch_backend"] <= 1e-4 and errs[0] <= 1e-4
+                and errs[1] <= 1e-4 and errs[2] <= 4e-4 and live_eq):
+            raise AssertionError(f"viewer {name} view against the plain path: {parity[name]}")
+        if name == "default" and dev.type == "cuda":
+            fb = fwd_bound(gT, cnt, got, ts, cfg)
+            entry.update({
+                "ms": kernel_device_ms(lambda: raster_cuda.composite_tiles(gT, cnt, ts, cfg),
+                                       "composite_fwd_kernel"),
+                "plain_ms": cuda_ms(lambda: raster_cuda.composite_tiles_reference(
+                    gT, cnt, ts, cfg), iters=3, warmup=1),
+                "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"]})
+            parity[name].update({"visible_pairs": fb["pairs"]["visible"],
+                                 "read_entries": fb["read_entries"], "bytes": fb["bytes"]})
+        del got, want, inputs, gT, cnt
+
+    frames_bg = np.round(np.asarray(scene.background) * 255)
+    rec = {"splats": cloud.num_points, "width": width, "height": height,
+           "page_ok": page[0] == 200 and b"/render?" in page[1],
+           "state": json.loads(state[1]), "ms_per_request": ms,
+           "frame_render_ms": render_ms, "png_encode_ms": encode_ms,
+           "non_background_share": [float((np.abs(f - frames_bg).max(-1) > 2).mean())
+                                    for f in frames],
+           "consecutive_mean_abs_diff": [float(np.abs(a - b).mean())
+                                         for a, b in zip(frames, frames[1:])],
+           "launches": launches, "nan_request_code": bad_code, "code_after_nan": after_code,
+           "against_plain_path": parity, "kernel": entry}
+    if not (rec["page_ok"] and rec["state"]["num_points"] == cloud.num_points
+            and all(s > 0.05 for s in rec["non_background_share"])
+            and all(d > 0.1 for d in rec["consecutive_mean_abs_diff"])
+            and launches == {"composite_fwd": len(views), "composite_bwd": 0}
+            and bad_code == 500 and after_code == 200):
+        raise AssertionError(f"viewer: {rec}")
+    return rec, entry
+
+
+def port_cli_in_process(dev, *args) -> dict:
+    """The port's CLI in this process on `dev`; its last stdout line as
+    JSON."""
+    import contextlib
+    import io
+
+    from gaussiansplattingregistration_tpu_torch.cli.main import main as port_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        port_main([*map(str, args), "--device", torch.device(dev).type])
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def cli_global_planes_phase(dev, tmp) -> dict:
+    """The new CLI subcommands on the card, in this process: `register
+    --method ransac` and `--method fgr` on the demo pair, `fit-planes` on a
+    planar pair (tests/test_planes.py's scene and offset), `register
+    --plane-inliers-*` (and the mismatched-flag failure), `merge-planes`;
+    then one `view` subprocess on port 0, one frame fetched, terminated."""
+    from gaussiansplattingregistration_tpu_torch.ops import se3
+    from gaussiansplattingregistration_tpu_torch.utils import io as gio
+    from gaussiansplattingregistration_tpu_torch.utils.png import decode_png
+
+    data = os.path.join(REPO, "tests", "data")
+    src, tgt = os.path.join(data, "demo_source.ply"), os.path.join(data, "demo_target.ply")
+    with open(os.path.join(data, "demo_transform.json")) as fh:
+        T_off = np.asarray(json.load(fh)["T_offset"], np.float64)
+    rec, walls = {}, {}
+    for method, extra in (("ransac", ["--max-iteration", "20000"]), ("fgr", [])):
+        t0 = time.perf_counter()
+        out = port_cli_in_process(dev, "register", src, tgt, "--method", method, "--voxel-size",
+                                  "0.1", "--checker-edge-length", "0.9", "--checker-distance",
+                                  "0.15", "--max-correspondence", "0.15", "--mutual-filter",
+                                  *extra)
+        walls[method] = time.perf_counter() - t0
+        T = np.asarray(out["transformation"])
+        rec[method] = {"fitness": out["fitness"], "num_iterations": out["num_iterations"],
+                       "pose_error": pose_error(T, T_off)}
+        if not (set(out) == {"transformation", "fitness", "inlier_rmse", "num_iterations"}
+                and np.isfinite(T).all()
+                and np.abs(T[:3, :3] @ T[:3, :3].T - np.eye(3)).max() < 1e-4):
+            raise AssertionError(f"cli register --method {method}: {out}")
+
+    cloud, (ia, ib) = planar_cloud(np.random.default_rng(42), 500, 120, dev)
+    T_gt = se3.se3_exp(torch.tensor([0.02, -0.015, 0.01, 0.03, -0.02, 0.015],
+                                    dtype=torch.float64)).numpy()
+    paths = {k: os.path.join(tmp, f"{k}.ply") for k in ("tgt", "src")}
+    gio.save_gaussian_cloud(cloud, paths["tgt"])
+    gio.save_gaussian_cloud(cloud.transform(np.linalg.inv(T_gt)), paths["src"])
+    counts = {}
+    t0 = time.perf_counter()
+    for k in ("tgt", "src"):
+        out = port_cli_in_process(dev, "fit-planes", paths[k], "--plane-count", 2,
+                                  "--iterations", 300,
+                                  "--distance-threshold", 0.02, "--normal-threshold", 0.8,
+                                  "--min-distance", 0.2, "--output",
+                                  os.path.join(tmp, f"planes_{k}.json"))
+        counts[k] = out["inlier_counts"]
+    walls["fit_planes_x2"] = time.perf_counter() - t0
+    t_json = os.path.join(tmp, "t_planes.json")
+    t0 = time.perf_counter()
+    port_cli_in_process(dev, "register", paths["src"], paths["tgt"], "--method", "point_to_plane",
+                        "--max-correspondence", "0.3", "--max-iteration", "40",
+                        "--plane-inliers-first", os.path.join(tmp, "planes_src.json"),
+                        "--plane-inliers-second", os.path.join(tmp, "planes_tgt.json"),
+                        "--output", t_json)
+    walls["register_plane_inliers"] = time.perf_counter() - t0
+    err = pose_error(load_json(t_json)["transformation"], np.linalg.inv(T_gt))
+    try:
+        port_cli_in_process(dev, "register", paths["src"], paths["tgt"], "--plane-inliers-first",
+                            os.path.join(tmp, "planes_src.json"))
+        mismatch_fails = False
+    except SystemExit:
+        mismatch_fails = True
+    t0 = time.perf_counter()
+    merged = port_cli_in_process(dev, "merge-planes", paths["tgt"],
+                                 os.path.join(tmp, "planes_tgt.json"),
+                                 os.path.join(tmp, "merged"), "--cluster-level", 2)
+    walls["merge_planes"] = time.perf_counter() - t0
+    rec.update({"fit_planes_inlier_counts": counts, "plane_inlier_register_pose_error": err,
+                "mismatched_plane_flags_fail": mismatch_fails,
+                "merge_planes_levels": [lvl["points"] for lvl in merged["levels"]]})
+    if not (all(len(c) == 2 and min(c) > 350 for c in counts.values()) and err < 2e-2
+            and mismatch_fails and len(merged["levels"]) == 2):
+        raise AssertionError(f"cli plane flow: {rec}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gaussiansplattingregistration_tpu_torch.cli", "view", tgt,
+         "--port", "0", "--device", torch.device(dev).type],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    code, frame = None, None
+    try:
+        line = proc.stdout.readline()
+        if line.startswith("viewer: http://"):
+            code, body = http_get(line.split()[1] + "render?w=96&h=80")
+            walls["view_start_to_frame"] = time.perf_counter() - t0
+            frame = decode_png(body) if code == 200 else None
+    finally:
+        proc.terminate()
+        try:
+            _, err_text = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err_text = proc.communicate()
+    if not line.startswith("viewer: http://"):
+        raise AssertionError(f"cli view printed {line!r}: {err_text[-2000:]}")
+    rec["view_frame_shape"] = None if frame is None else list(frame.shape)
+    rec["command_wall_s"] = walls
+    if frame is None or frame.shape != (80, 96, 3) or not frame.std() > 1.0:
+        raise AssertionError(f"cli view: HTTP {code}, {rec}")
     return rec
 
 
@@ -1095,20 +1652,17 @@ def main() -> int:
     # function reads only the entries before min(count, live) of each tile
     # (`read_entries`; nothing past them changes an output), the counts and,
     # backward, the cotangents; it writes [T, P, 5] and live forward, the
-    # whole d_gT backward. The forward outputs the backward kernel also
-    # reads are a residual of its design and not counted. Beside it, the
-    # pairs each design tests: `horizon_pairs` (the stats' chunk-granular
-    # horizon, what the block-level exit visits), `alive_pairs` and
-    # `candidate_pairs` (what the culled kernels test), and the bound that
-    # charges the visibility test to every alive pair.
-    pairs = pair_counts(gT, cnt, ts, cfg)
+    # whole d_gT backward (`fwd_bound`). The forward outputs the backward
+    # kernel also reads are a residual of its design and not counted.
+    # Beside it, the pairs each design tests: `horizon_pairs` (the stats'
+    # chunk-granular horizon, what the block-level exit visits),
+    # `alive_pairs` and `candidate_pairs` (what the culled kernels test),
+    # and the bound that charges the visibility test to every alive pair.
+    fb = fwd_bound(gT, cnt, got, ts, cfg)
+    pairs, read_entries, entry_bytes = fb["pairs"], fb["read_entries"], fb["entry_bytes"]
+    ops_ms, bytes_ms, nbytes, bound_ms = (fb[k] for k in ("ops_bound_ms", "bytes_bound_ms",
+                                                          "bytes", "bound_ms"))
     horizon_pairs = stats["mean_live"] * num_tiles * ts * ts
-    ops_ms = pairs["visible"] * (OPS_TEST + OPS_VISIBLE_FWD) / PEAK_FP32_FLOPS * 1e3
-    read_entries = int(torch.minimum(cnt[:, 0], got[3]).sum())
-    entry_bytes = read_entries * gT.shape[1] * 4
-    nbytes = entry_bytes + cnt.numel() * 4 + T_live * ts * ts * 5 * 4 + T_live * 4
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
     bwd_ops_ms = pairs["visible"] * (OPS_TEST + OPS_VISIBLE_BWD) / PEAK_FP32_FLOPS * 1e3
     bwd_nbytes = entry_bytes + cnt.numel() * 4 + T_live * ts * ts * 5 * 4 + gT.numel() * 4
     bwd_bytes_ms = bwd_nbytes / PEAK_BYTES_PER_S * 1e3
@@ -1260,18 +1814,39 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         emit({"phase": "cli_e2e", "card": card, **cli_e2e_phase(dev, raster_cuda, tmp)})
 
-    # 10. Every ported kernel, its launches on the slice's main path (the
-    # full-width photometric run) and its numbers.
+    # 10. Global registration, planes, the viewer and their CLI (plain
+    # torch on the card, no kernel of their own; the viewer's frames run
+    # composite_fwd).
+    for phase, fn in (("global", lambda: global_phase(dev)), ("planes", lambda: planes_phase(dev))):
+        t0 = time.perf_counter()
+        rec = fn()
+        emit({"phase": phase, "card": card, **rec, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    viewer_rec, viewer_fwd = viewer_phase(dev, raster_cuda)
+    emit({"phase": "viewer", "card": card, **viewer_rec, "seconds": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rec = cli_global_planes_phase(dev, tmp)
+        emit({"phase": "cli_global_planes", "card": card, **rec,
+              "seconds": time.perf_counter() - t0})
+
+    # 11. Every ported kernel on each main path, with that path's launches
+    # (counts set to 0 just before the path and read just after it) and
+    # the numbers measured on that path's inputs: the full-width
+    # photometric run (bench config, K = 384) and the viewer's six frames
+    # (the viewer's config, K = 256; no backward).
     src = "gaussiansplattingregistration_tpu_torch/csrc/"
     ref = "gaussiansplattingregistration_tpu/ops/raster_pallas.py:"
+    fwd = {"name": "composite_fwd", "route": "cuda", "source": src + "composite_fwd.cu",
+           "replaces": ref + "173"}
     emit({"kernels": [
-        {"name": "composite_fwd", "route": "cuda", "source": src + "composite_fwd.cu",
-         "replaces": ref + "173", "launches": launches_photo["composite_fwd"],
+        {**fwd, "path": "photometric", "launches": launches_photo["composite_fwd"],
          "max_abs_err": max(errs), "ms": kernel_ms, "plain_ms": plain_ms,
-         "bound_ms": bound_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-         "library_ms": None},
+         "bound_ms": bound_ms, "bound_by": fb["bound_by"], "library_ms": None},
+        {**fwd, "path": "viewer", **viewer_fwd, "library_ms": None},
         {"name": "composite_bwd", "route": "cuda", "source": src + "composite_bwd.cu",
-         "replaces": ref + "270", "launches": launches_photo["composite_bwd"],
+         "replaces": ref + "270", "path": "photometric",
+         "launches": launches_photo["composite_bwd"],
          "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
          "bound_ms": bwd_bound_ms,
          "bound_by": "operations" if bwd_ops_ms >= bwd_bytes_ms else "bytes",

@@ -1,19 +1,22 @@
 """CLI of the torch port: the JAX CLI's subcommands that the port has so
-far (the rest follow the port; see ROADMAP.md), with its flags and the JSON
-keys it prints.
+far, with its flags and the JSON keys it prints.
 
   info          inspect a PLY (type sniffing)
-  register      local ICP (point-to-point, -plane, colored, generalized)
+  register      local ICP (point-to-point, -plane, colored, generalized),
+                global RANSAC or FGR on FPFH features; optionally on
+                plane-inlier subsets (--plane-inliers-first/--second)
   multiscale    coarse-to-fine voxel or HEM-mixture registration
   downsample    HEM Gaussian-mixture levels
   render        rasterize a cloud (or merged pair) to PNG
+  view          interactive browser viewer
   evaluate      photometric evaluation vs GT images
   merge         transform + concatenate + save
+  fit-planes    sequential RANSAC plane fitting
+  merge-planes  per-plane HEM merging
   photometric   differentiable pose registration through the rasterizer
 
-Global registration (`register --method ransac|fgr`), plane subsets
-(`--plane-inliers-*`) and camera-sharded evaluation (`evaluate --sharded
-on`) raise: they follow in later slices of the port.
+Camera-sharded evaluation (`evaluate --sharded on`) raises: it follows in
+the multi-GPU slice of the port (ROADMAP.md).
 
 Transforms are passed as 16-value row-major 4x4 or JSON files
 {"transformation": [[...]]}. `--device cuda` (the default) needs a card;
@@ -54,10 +57,6 @@ def _save_transform(T, path, extra=None):
     print(json.dumps(out))
 
 
-_GLOBAL_SLICE = ("global registration (FPFH with RANSAC or FGR) is not ported yet: it is "
-                 "the next slice of the port (ROADMAP.md, Queue 1, item 14)")
-_PLANES_SLICE = ("plane subsets (--plane-inliers-*) are not ported yet: they come with "
-                 "plane fitting (ROADMAP.md, Queue 1, item 15)")
 _SHARDED_SLICE = ("camera-sharded evaluation is not ported yet: it comes with the "
                   "multi-GPU slice (ROADMAP.md, Queue 1, item 17)")
 
@@ -83,11 +82,13 @@ def _load_pair(args):
             gio.load_point_cloud_any(args.second, device=args.device))
 
 
-def _as_point_cloud(obj):
+def _as_point_cloud(obj, estimate_normals=False):
     from gaussiansplattingregistration_tpu_torch.models.gaussian_cloud import GaussianCloud
     from gaussiansplattingregistration_tpu_torch.utils import io as gio
 
-    return gio.gaussian_to_point_cloud(obj) if isinstance(obj, GaussianCloud) else obj
+    if isinstance(obj, GaussianCloud):
+        return gio.gaussian_to_point_cloud(obj, estimate_missing_normals=estimate_normals)
+    return obj
 
 
 def _mixture_params(args, cluster_level):
@@ -120,27 +121,63 @@ def cmd_info(args):
 
 def cmd_register(args):
     from gaussiansplattingregistration_tpu_torch.models import parameters as P
-    from gaussiansplattingregistration_tpu_torch.ops import icp as icp_ops
 
-    if args.plane_inliers_first or args.plane_inliers_second:
-        raise SystemExit(_PLANES_SLICE)
-    if args.method in ("ransac", "fgr"):
-        raise SystemExit(_GLOBAL_SLICE)
+    if bool(args.plane_inliers_first) != bool(args.plane_inliers_second):
+        raise SystemExit(
+            "--plane-inliers-first and --plane-inliers-second must be given together "
+            "(inlier registration registers plane-inlier subsets of both clouds)")
     first, second = _load_pair(args)
-    params = P.LocalRegistrationParams(
-        registration_type=_icp_type(args.method),
-        max_correspondence=args.max_correspondence,
-        relative_fitness=args.relative_fitness,
-        relative_rmse=args.relative_rmse,
-        max_iteration=args.max_iteration if args.max_iteration != 100000 else 30,
-        rejection_type=P.KernelLossFunctionType[args.kernel.upper()],
-        k_value=args.k_value,
-    )
-    result = icp_ops.icp(_as_point_cloud(first), _as_point_cloud(second), params,
-                         init_transform=_load_transform(args.init_transform))
-    # Local results replace the transform.
+    init = _load_transform(args.init_transform)
+    src, tgt = _as_point_cloud(first), _as_point_cloud(second)
+    if args.plane_inliers_first:
+        from gaussiansplattingregistration_tpu_torch.pipelines.planes import (
+            load_plane_indices,
+            select_plane_inliers,
+        )
+
+        src = select_plane_inliers(src, load_plane_indices(args.plane_inliers_first))
+        tgt = select_plane_inliers(tgt, load_plane_indices(args.plane_inliers_second))
+
+    if args.method in ("ransac", "fgr"):
+        from gaussiansplattingregistration_tpu_torch.ops import global_registration as gr
+
+        # Global registration composes with the current transform: it runs
+        # on the moved source, and the result is applied after `init`.
+        moved = src.transform(init)
+        if args.method == "ransac":
+            checkers = [P.CorrespondenceChecker(kind, value) for kind, value in (
+                ("edge_length", args.checker_edge_length), ("distance", args.checker_distance),
+                ("normal", args.checker_normal)) if value is not None]
+            params = P.RANSACRegistrationParams(
+                voxel_size=args.voxel_size, mutual_filter=args.mutual_filter,
+                max_correspondence=args.max_correspondence, ransac_n=args.ransac_n,
+                checkers=tuple(checkers), max_iteration=args.max_iteration,
+                confidence=args.confidence,
+            )
+            result = gr.ransac_registration(moved, tgt, params, seed=args.seed)
+        else:
+            params = P.FGRRegistrationParams(
+                voxel_size=args.voxel_size, maximum_correspondence=args.fgr_max_correspondence,
+                max_iterations=args.max_iteration if args.max_iteration != 100000 else 64,
+            )
+            result = gr.fgr_registration(moved, tgt, params, seed=args.seed)
+        final = result.transformation @ init
+    else:
+        from gaussiansplattingregistration_tpu_torch.ops import icp as icp_ops
+
+        params = P.LocalRegistrationParams(
+            registration_type=_icp_type(args.method),
+            max_correspondence=args.max_correspondence,
+            relative_fitness=args.relative_fitness,
+            relative_rmse=args.relative_rmse,
+            max_iteration=args.max_iteration if args.max_iteration != 100000 else 30,
+            rejection_type=P.KernelLossFunctionType[args.kernel.upper()],
+            k_value=args.k_value,
+        )
+        result = icp_ops.icp(src, tgt, params, init_transform=init)
+        final = result.transformation  # local results replace the transform
     _save_transform(
-        result.transformation, args.output,
+        final, args.output,
         {"fitness": result.fitness, "inlier_rmse": result.inlier_rmse,
          "num_iterations": result.num_iterations},
     )
@@ -252,17 +289,25 @@ def _to_png(path, img):
     write_png(path, (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(np.uint8))
 
 
-def cmd_render(args):
-    from gaussiansplattingregistration_tpu_torch.ops import math3d
-    from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
+def _load_render_cloud(args):
+    """The input cloud, merged with --second under --transform or moved by
+    --transform alone."""
     from gaussiansplattingregistration_tpu_torch.utils import io as gio
 
     cloud = gio.load_gaussian_cloud(args.input, device=args.device)
     if args.second:
         second = gio.load_gaussian_cloud(args.second, device=args.device)
-        cloud = cloud.merge(second, _load_transform(args.transform))
-    elif args.transform:
-        cloud = cloud.transform(_load_transform(args.transform))
+        return cloud.merge(second, _load_transform(args.transform))
+    if args.transform:
+        return cloud.transform(_load_transform(args.transform))
+    return cloud
+
+
+def cmd_render(args):
+    from gaussiansplattingregistration_tpu_torch.ops import math3d
+    from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
+
+    cloud = _load_render_cloud(args)
     xyz = cloud.xyz.cpu().numpy()
     center = (xyz.min(0) + xyz.max(0)) / 2
     extent = float(np.linalg.norm(xyz.max(0) - xyz.min(0)))
@@ -306,6 +351,29 @@ def cmd_render(args):
     print(json.dumps(out))
 
 
+def cmd_view(args):
+    """Interactive browser viewer (see pipelines/viewer.py); serves until
+    interrupted."""
+    import time
+
+    from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig
+    from gaussiansplattingregistration_tpu_torch.pipelines import viewer as viewer_mod
+
+    cloud = _load_render_cloud(args)
+    config = RasterizeConfig(max_splats_per_tile=args.max_splats_per_tile, backend=args.backend)
+    server, _ = viewer_mod.serve(cloud, host=args.host, port=args.port, width=args.width,
+                                 height=args.height, config=config, device=args.device)
+    host, port = server.server_address[:2]
+    print(f"viewer: http://{host}:{port}/  ({cloud.num_points} splats; Ctrl-C to stop)",
+          flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        server.shutdown()
+    return 0
+
+
 def cmd_evaluate(args):
     from gaussiansplattingregistration_tpu_torch.pipelines.evaluation import (
         evaluate_registration,
@@ -334,6 +402,47 @@ def cmd_merge(args):
     merged = merge_from_paths(args.first, args.second, _load_transform(args.transform),
                               args.output, device=args.device)
     print(json.dumps({"output": args.output, "num_points": merged.num_points}))
+
+
+def cmd_fit_planes(args):
+    from gaussiansplattingregistration_tpu_torch.models.parameters import PlaneFittingParams
+    from gaussiansplattingregistration_tpu_torch.ops.plane_fitting import fit_planes
+    from gaussiansplattingregistration_tpu_torch.utils import io as gio
+
+    obj = gio.load_point_cloud_any(args.input, device=args.device)
+    pc = _as_point_cloud(obj, estimate_normals=True)
+    params = PlaneFittingParams(
+        plane_count=args.plane_count, iterations=args.iterations,
+        distance_threshold=args.distance_threshold, normal_threshold=args.normal_threshold,
+        min_distance=args.min_distance,
+    )
+    planes, inliers = fit_planes(pc, params, seed=args.seed)
+    out = {"planes": [p.tolist() for p in planes], "inlier_counts": [len(i) for i in inliers]}
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump({**out, "inlier_indices": [i.tolist() for i in inliers]}, f)
+    print(json.dumps(out))
+
+
+def cmd_merge_planes(args):
+    from gaussiansplattingregistration_tpu_torch.pipelines.planes import (
+        load_plane_indices,
+        merge_plane_inliers,
+    )
+    from gaussiansplattingregistration_tpu_torch.utils import io as gio
+
+    cloud = gio.load_gaussian_cloud(args.input, device=args.device)
+    plane_indices = load_plane_indices(args.planes)
+    levels = merge_plane_inliers(cloud, plane_indices, _mixture_params(args, args.cluster_level),
+                                 seed=args.seed)
+    n_plane = int(sum(len(ix) for ix in plane_indices))
+    out = {"input_points": cloud.num_points, "plane_points": n_plane,
+           "unselected_points": cloud.num_points - n_plane, "levels": []}
+    for i, c in enumerate(levels, start=1):
+        path = f"{args.output_prefix}_level{i}.ply"
+        gio.save_gaussian_cloud(c, path)
+        out["levels"].append({"level": i, "points": c.num_points, "path": path})
+    print(json.dumps(out))
 
 
 def cmd_photometric(args):
@@ -383,7 +492,7 @@ def build_parser():
     add_device(sp)
     sp.set_defaults(fn=cmd_info)
 
-    sp = sub.add_parser("register", help="local ICP registration (global: a later slice)")
+    sp = sub.add_parser("register", help="local ICP or global RANSAC/FGR registration")
     sp.add_argument("first")
     sp.add_argument("second")
     sp.add_argument("--method", default="point_to_point",
@@ -405,8 +514,11 @@ def build_parser():
     sp.add_argument("--checker-normal", type=float)
     sp.add_argument("--fgr-max-correspondence", type=float, default=0.025)
     sp.add_argument("--seed", type=int, default=0)
-    sp.add_argument("--plane-inliers-first")
-    sp.add_argument("--plane-inliers-second")
+    sp.add_argument("--plane-inliers-first",
+                    help="fit-planes --output JSON for the first cloud: "
+                         "register on the plane-inlier subsets only")
+    sp.add_argument("--plane-inliers-second",
+                    help="fit-planes --output JSON for the second cloud")
     add_device(sp)
     sp.set_defaults(fn=cmd_register)
 
@@ -464,6 +576,19 @@ def build_parser():
     sp.add_argument("--depth-output", help="also save a normalized depth map PNG")
     sp.set_defaults(fn=cmd_render)
 
+    sp = sub.add_parser("view", help="interactive browser viewer")
+    sp.add_argument("input")
+    sp.add_argument("--second")
+    sp.add_argument("--transform")
+    sp.add_argument("--host", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=8765)
+    sp.add_argument("--width", type=int, default=960)
+    sp.add_argument("--height", type=int, default=720)
+    sp.add_argument("--max-splats-per-tile", type=int, default=256)
+    sp.add_argument("--backend", default="cuda", choices=["cuda", "torch"])
+    add_device(sp)
+    sp.set_defaults(fn=cmd_view)
+
     sp = sub.add_parser("evaluate", help="photometric evaluation vs GT images")
     sp.add_argument("first")
     sp.add_argument("second")
@@ -486,6 +611,35 @@ def build_parser():
     sp.add_argument("--transform")
     add_device(sp)
     sp.set_defaults(fn=cmd_merge)
+
+    sp = sub.add_parser("fit-planes", help="sequential RANSAC plane fitting")
+    sp.add_argument("input")
+    sp.add_argument("--plane-count", type=int, default=1)
+    sp.add_argument("--iterations", type=int, default=100)
+    sp.add_argument("--distance-threshold", type=float, default=0.01)
+    sp.add_argument("--normal-threshold", type=float, default=0.9)
+    sp.add_argument("--min-distance", type=float, default=0.05)
+    sp.add_argument("--output")
+    sp.add_argument("--seed", type=int, default=0)
+    add_device(sp)
+    sp.set_defaults(fn=cmd_fit_planes)
+
+    sp = sub.add_parser(
+        "merge-planes",
+        help="per-plane HEM merging: plane inliers downsampled plane-by-plane, "
+             "off-plane points passed through unchanged",
+    )
+    sp.add_argument("input")
+    sp.add_argument("planes", help="fit-planes --output JSON for this cloud")
+    sp.add_argument("output_prefix")
+    sp.add_argument("--hem-reduction", type=float, default=3.0)
+    sp.add_argument("--distance-delta", type=float, default=3.0)
+    sp.add_argument("--color-delta", type=float, default=2.5)
+    sp.add_argument("--decay-rate", type=float, default=1.0)
+    sp.add_argument("--cluster-level", type=int, default=3)
+    sp.add_argument("--seed", type=int, default=0)
+    add_device(sp)
+    sp.set_defaults(fn=cmd_merge_planes)
 
     sp = sub.add_parser("photometric", help="differentiable pose registration")
     sp.add_argument("first", help="cloud whose pose is optimized")

@@ -9,12 +9,43 @@ translation; `viewmat = [[Rᵀ, T], [0, 1]]`.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from gaussiansplattingregistration_tpu_torch.ops import math3d
 from gaussiansplattingregistration_tpu_torch.utils.device import as_tensor, resolve_device
+
+
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
+def fov_x2fov_y(fov_x: float, aspect_ratio: float) -> float:
+    return 2.0 * math.atan(math.tan(fov_x / 2.0) / aspect_ratio)
+
+
+def focal_lengths_from_spec(width: int, height: int, value: float, fov_type: int):
+    """Focal lengths (fx, fy) from a field-of-view input mode: 0 = default
+    (0, 0), 1 = field of view (radians, or degrees if > pi), 2 = focal
+    length fx."""
+    if fov_type == 0:
+        return 0.0, 0.0
+    if fov_type == 1:
+        if value > math.pi:
+            value = value * math.pi / 180.0
+        return fov2focal(value, width), fov2focal(value, height)
+    if fov_type == 2:
+        fx = value
+        fov_x = focal2fov(fx, width)
+        fov_y = fov_x2fov_y(fov_x, width / height)
+        return fx, fov2focal(fov_y, height)
+    raise ValueError(f"unknown fov_type {fov_type}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +125,55 @@ class Camera:
         """Set pose from a 4x4 view matrix."""
         V = as_tensor(viewmat, self.rotation.device)
         return dataclasses.replace(self, rotation=V[:3, :3].T, position=V[:3, 3])
+
+    def resized(self, scale: float) -> "Camera":
+        """Scale resolution and focal lengths together."""
+        return dataclasses.replace(
+            self, fx=self.fx * scale, fy=self.fy * scale,
+            width=int(round(self.width * scale)), height=int(round(self.height * scale)))
+
+    # -------------------------------------------------- interactive orbit
+    # Pure-function orbit controls: each returns a new camera.
+    _RIGHT = (1.0, 0.0, 0.0)
+    _UP = (0.0, 1.0, 0.0)
+    _FORWARD = (0.0, 0.0, 1.0)
+
+    def _axis(self, axis) -> torch.Tensor:
+        return torch.tensor(axis, dtype=torch.float32, device=self.rotation.device)
+
+    def _angle(self, a) -> torch.Tensor:
+        return torch.tensor(a, dtype=torch.float32, device=self.rotation.device)
+
+    def rotate(self, dx: float, dy: float) -> "Camera":
+        """Yaw by dx about the camera's up axis, pitch by -dy about its right
+        axis (radians)."""
+        up = self.rotation @ self._axis(self._UP)
+        right = self.rotation @ self._axis(self._RIGHT)
+        yaw = math3d.axis_angle_to_rotmat(up, self._angle(dx))
+        pitch = math3d.axis_angle_to_rotmat(right, self._angle(-dy))
+        return dataclasses.replace(self, rotation=yaw @ pitch @ self.rotation)
+
+    def translate(self, dx: float, dy: float) -> "Camera":
+        """Pan by (dx, dy) pixels at the focal lengths."""
+        move = self._axis(self._RIGHT) * (dx / self.fx) + self._axis(self._UP) * (dy / self.fy)
+        return dataclasses.replace(self, position=self.position + move)
+
+    def roll(self, dx: float) -> "Camera":
+        """Roll about the view axis by 4 pi dx / height radians."""
+        radians = 4.0 * math.pi * dx / max(self.height, 1)
+        rot = math3d.axis_angle_to_rotmat(self._axis(self._FORWARD), self._angle(radians))
+        return dataclasses.replace(self, rotation=self.rotation @ rot)
+
+    def zoom(self, delta: float, aabb_min, aabb_max) -> "Camera":
+        """Move along the view axis by delta * 5% of the distance to the
+        scene's centre, that distance kept above 2% of the scene's size."""
+        aabb_min = as_tensor(aabb_min, self.position.device)
+        aabb_max = as_tensor(aabb_max, self.position.device)
+        model_size = torch.linalg.norm(aabb_max - aabb_min)
+        center = (aabb_min + aabb_max) / 2.0
+        length = torch.maximum(0.02 * model_size, torch.linalg.norm(center - self.position))
+        dist = delta * 0.05 * length
+        return dataclasses.replace(self, position=self.position + dist * self._axis(self._FORWARD))
 
 
 def look_at(eye, lookat, up, zoom: float = 1.0, forward: str = "-z",

@@ -1,4 +1,4 @@
-"""Minimal PNG codec (stdlib zlib + struct).
+"""Minimal PNG codec (stdlib zlib + struct), for files and in-memory bytes.
 
 The writer stores 8-bit gray or RGB with no row filter. The reader takes
 8-bit gray, gray+alpha, RGB and RGBA, non-interlaced, with all five row
@@ -24,6 +24,13 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
 
 def write_png(path: str, img: np.ndarray) -> None:
     """Write a uint8 [H, W] (gray) or [H, W, 3] (RGB) image."""
+    data = encode_png(img)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """A uint8 [H, W] (gray) or [H, W, 3] (RGB) image as PNG bytes."""
     img = np.ascontiguousarray(img, dtype=np.uint8)
     if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
         raise ValueError(f"expected [H, W] or [H, W, 3], got {img.shape}")
@@ -34,9 +41,8 @@ def write_png(path: str, img: np.ndarray) -> None:
         [np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1
     ).tobytes()
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
+    return (PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -83,9 +89,13 @@ def read_png(path: str) -> np.ndarray:
     """Read an 8-bit, non-interlaced gray, gray+alpha, RGB or RGBA PNG as
     uint8 [H, W] (gray) or [H, W, C]."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), name=path)
+
+
+def decode_png(data: bytes, name: str = "PNG data") -> np.ndarray:
+    """`read_png` of in-memory PNG bytes; `name` labels its errors."""
     if data[:8] != PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{name}: not a PNG file")
     pos, header, idat = 8, None, []
     while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
@@ -99,10 +109,10 @@ def read_png(path: str) -> np.ndarray:
             break
         pos += 12 + length
     if header is None:
-        raise ValueError(f"{path}: PNG has no IHDR chunk")
+        raise ValueError(f"{name}: PNG has no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
     if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, color type {ctype}, "
+        raise ValueError(f"{name}: unsupported PNG (bit depth {depth}, color type {ctype}, "
                          f"interlace {interlace}); 8-bit non-interlaced gray/RGB(A) only")
     ch = _CHANNELS[ctype]
     img = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch).reshape(h, w, ch)

@@ -211,7 +211,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert len(sources) > 15
     for mod in (("ops", "se3.py"), ("ops", "metrics.py"), ("pipelines", "photometric.py"),
                 ("pipelines", "evaluation.py"), ("utils", "png.py"), ("utils", "native.py"),
-                ("ops", "hem.py"), ("ops", "knn.py"), ("ops", "icp.py"), ("ops", "lpips.py")):
+                ("ops", "hem.py"), ("ops", "knn.py"), ("ops", "icp.py"), ("ops", "lpips.py"),
+                ("ops", "features.py"), ("ops", "global_registration.py"),
+                ("ops", "plane_fitting.py"), ("pipelines", "planes.py"),
+                ("models", "workspace.py"), ("pipelines", "viewer.py"), ("utils", "logging.py"),
+                ("utils", "checkpoint.py"), ("utils", "profiling.py")):
         assert os.path.join(PORT, *mod) in sources
     offenders = [
         (os.path.relpath(path, REPO), mod)
@@ -269,10 +273,11 @@ def test_native_bridge_never_writes_the_jax_library(tmp_path, monkeypatch):
 
 
 def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path):
-    """Loaders, evaluation, LPIPS weights and mixture clouds default to
-    `cuda` and raise without a card; `device="cpu"` runs."""
+    """Loaders, evaluation, LPIPS weights, mixture clouds, the viewer and the
+    CLI's new subcommands default to `cuda` and raise without a card;
+    `device="cpu"` runs."""
     from gaussiansplattingregistration_tpu_torch.ops import hem, lpips
-    from gaussiansplattingregistration_tpu_torch.pipelines import evaluation, merge
+    from gaussiansplattingregistration_tpu_torch.pipelines import evaluation, merge, viewer
 
     cloud = tio.load_gaussian_cloud(os.path.join(DATA, "demo_source.ply"), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -289,8 +294,20 @@ def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                                                    use_lpips=False, device=d),
         lambda d: lpips.default_params(d),
         lambda d: hem.mixture_levels_to_clouds([level], 0, device=d),
+        lambda d: viewer.serve(cloud, port=0, device=d)[0].shutdown(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call(None)
         call("cpu")
+    src, tgt = os.path.join(DATA, "demo_source.ply"), os.path.join(DATA, "demo_target.ply")
+    planes_json = tmp_path / "planes.json"
+    for args in (["register", src, tgt, "--method", "fgr"], ["fit-planes", src],
+                 ["merge-planes", src, str(planes_json), str(tmp_path / "m")],
+                 ["view", src, "--port", "0"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port_main(args)
+    port_main(["fit-planes", src, "--output", str(planes_json), "--iterations", "20",
+               "--device", "cpu"])
+    port_main(["merge-planes", src, str(planes_json), str(tmp_path / "m"), "--cluster-level", "1",
+               "--device", "cpu"])

@@ -9,7 +9,7 @@ port's render of the pair merged under its true transform, written by
 test runs 80: it starts from the multiscale pose, already inside the
 threshold, and chip_smoke.py's `cli_e2e` phase runs the 80 on the card.
 `register` and `merge` are also held against the JAX CLI's outputs, and
-the options not ported yet must raise.
+the option not ported yet and misused options must raise.
 """
 
 import json
@@ -127,14 +127,19 @@ def test_downsample_prints_jax_keys(tmp_path, capsys):
         assert os.path.exists(lvl["path"])
 
 
-@pytest.mark.parametrize("args, match", [
-    (["register", SRC, TGT, "--method", "ransac"], "global registration"),
-    (["register", SRC, TGT, "--method", "fgr"], "global registration"),
-    (["register", SRC, TGT, "--plane-inliers-first", "p.json",
-      "--plane-inliers-second", "q.json"], "plane"),
-    (["evaluate", SRC, TGT, "--cameras", "c.json", "--images-path", ".", "--sharded", "on"],
-     "sharded"),
+@pytest.mark.parametrize("args", [
+    pytest.param(["--method", "ransac", "--plane-inliers-first", "p.json"],
+                 id="first_only-ransac"),
+    pytest.param(["--method", "fgr", "--plane-inliers-second", "q.json"],
+                 id="second_only-fgr"),
+    pytest.param(["--plane-inliers-first", "p.json"], id="first_only-point_to_point"),
 ])
-def test_unported_options_raise(args, match):
-    with pytest.raises(SystemExit, match=match):
-        port_main([*args, "--device", "cpu"])
+def test_plane_inlier_flags_must_pair(args):
+    with pytest.raises(SystemExit, match="given together"):
+        port_main(["register", SRC, TGT, *args, "--device", "cpu"])
+
+
+def test_unported_options_raise():
+    with pytest.raises(SystemExit, match="sharded"):
+        port_main(["evaluate", SRC, TGT, "--cameras", "c.json", "--images-path", ".",
+                   "--sharded", "on", "--device", "cpu"])
