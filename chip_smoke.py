@@ -17,7 +17,12 @@ through the port's CLI, whose evaluation is driven once more in this
 process with the kernels' launch counts. Then global registration (bench.py
 config 2 and a 1M-point surface), plane fitting and merging, the viewer
 serving the bench cloud (its frames and composite_fwd held against the
-plain path on the viewer's own inputs), and their CLI. It prints one JSON
+plain path on the viewer's own inputs), and their CLI. Then the multi-GPU
+path: NCCL at world size 1 in this process on the bench cloud (sharded and
+depth-sharded renders, the sharded train step of each compositor against
+one device, with its time), two gloo ranks sharing the card in two
+processes of this script (`--rank-worker`) on bench.py config 5's scene,
+and `evaluate --sharded on` against `--sharded off`. It prints one JSON
 line per phase. The last lines are the `kernels` record (one entry per
 kernel and main path), the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
@@ -1419,6 +1424,484 @@ def cli_global_planes_phase(dev, tmp) -> dict:
     return rec
 
 
+def bwd_bound(gT, cnt, fb, ts: int) -> dict:
+    """Least time for the backward kernel's work on (gT, cnt): the whole
+    backward formula on the forward's visible pairs (`fb` from `fwd_bound`)
+    against reading the entries the forward reads, the counts and the
+    cotangents once and writing the whole d_gT once. The forward outputs
+    the kernel also reads are a residual of its design and not counted."""
+    ops_ms = fb["pairs"]["visible"] * (OPS_TEST + OPS_VISIBLE_BWD) / PEAK_FP32_FLOPS * 1e3
+    nbytes = fb["entry_bytes"] + cnt.numel() * 4 + gT.shape[0] * ts * ts * 5 * 4 + gT.numel() * 4
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"ops_bound_ms": ops_ms, "bytes": nbytes, "bytes_bound_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def visibility_edges(gT, cnt, ts: int, config, tiles_per_step: int = 256) -> tuple:
+    """Where the kernel and its twin may round a pair to opposite sides of
+    the visibility test. Each side's sigma carries at most ~4 units of
+    rounding (2^-24) of S = |a| dx^2 / 2 + |c| dy^2 / 2 + |b dx dy| (the
+    kernel fuses multiply-adds, the twin does not), and exp and the product
+    with the opacity a few more, so their alphas differ by less than
+    gap = raw * eps32 * (8 S + 8), twice that sum. A pair is on the edge
+    when the twin's alpha lies within gap of alpha_clip, or its sigma
+    within eps32 * 8 S of 0. Returns (pixels [T, P]: an entry inside the
+    tile's count is on the edge there; entries [T, K]: the entry is on the
+    edge, or visible, at such a pixel, so its gradient may differ by the
+    flipped pair's share)."""
+    from gaussiansplattingregistration_tpu_torch.ops import raster_cuda as RC
+
+    K, S = gT.shape[2], RC._CHUNK
+    eps = float(torch.finfo(torch.float32).eps)
+    px, py = RC._pixel_centres(ts, gT)
+    pix_out, ent_out = [], []
+    for t0 in range(0, gT.shape[0], tiles_per_step):
+        g = gT[t0:t0 + tiles_per_step]
+        _, in_count = RC._in_count(cnt[t0:t0 + tiles_per_step], g.shape[0], K, g.device)
+
+        def chunk(c0):
+            pc, inc = g[:, :, c0:c0 + S], in_count[:, c0:c0 + S]
+            dx, dy, sigma, _, raw, alpha = RC._chunk_terms(pc, px, py, inc, config)
+            size = (0.5 * (pc[:, None, 2, :].abs() * dx * dx + pc[:, None, 4, :].abs() * dy * dy)
+                    + (pc[:, None, 3, :] * dx * dy).abs())
+            gap = raw * eps * (8.0 * size + 8.0)
+            edge = ((torch.clamp_max(raw, config.alpha_max) - config.alpha_clip).abs() <= gap) \
+                | ((sigma.abs() <= eps * 8.0 * size) & (raw >= config.alpha_clip))
+            return edge & inc[:, None, :], alpha > 0
+
+        pixels = torch.zeros((g.shape[0], ts * ts), dtype=torch.bool, device=g.device)
+        for c0 in range(0, K, S):
+            pixels |= chunk(c0)[0].any(dim=-1)
+        entries = torch.cat([((edge | vis) & pixels[:, :, None]).any(dim=1)
+                             for edge, vis in (chunk(c0) for c0 in range(0, K, S))], dim=1)
+        pix_out.append(pixels)
+        ent_out.append(entries)
+    return torch.cat(pix_out), torch.cat(ent_out)
+
+
+def path_kernels(raster_cuda, args, cfg, seed: int) -> tuple:
+    """Both kernels on the inputs of the frame `args`, a main path's own.
+    composite_fwd against its twin at the bench shapes' tolerances (rgb
+    and alpha 1e-4, depth 4e-4), except at pixels where the two put a pair
+    on opposite sides of the visibility test (`visibility_edges`): each
+    pixel past those tolerances must be one, and within the jump of one
+    flipped pair (rgb and alpha 2 * alpha_clip * max(1, max |color|), depth
+    that times the largest depth); live equal. composite_bwd against its
+    twin by `check_bwd` on seeded cotangents, its error split between the
+    entries those pixels touch and the rest. `max_abs_err` is over the
+    whole frame; the flipped pixels' count and errors stand beside it.
+    Each one's device time per launch, its twin's time and its bound.
+    Returns (the `kernels` fields of composite_fwd, those of composite_bwd,
+    the frame's tile and pair counts)."""
+    ts = cfg.tile_size
+    inputs = kernel_inputs(args, cfg)
+    gT, cnt = inputs["gT"], inputs["cnt"]
+    got = raster_cuda.composite_tiles(gT, cnt, ts, cfg)
+    torch.cuda.synchronize()
+    want = raster_cuda.composite_tiles_reference(gT, cnt, ts, cfg)
+    edge, edge_entries = visibility_edges(gT, cnt, ts, cfg)
+    diffs = [(got[0] - want[0]).abs().amax(dim=-1), (got[1] - want[1]).abs(),
+             (got[2] - want[2]).abs()]
+    flipped = (diffs[0] > 1e-4) | (diffs[1] > 1e-4) | (diffs[2] > 4e-4)
+    flip_errs = [float(torch.where(flipped, d, 0.0).max()) for d in diffs]
+    jump = 2.0 * cfg.alpha_clip * max(1.0, float(gT[:, 6:9].abs().max()))
+    flip_tols = (jump, jump, jump * float(gT[:, 9].abs().max()))
+    unexplained = int((flipped & ~edge).sum())
+    live_eq = bool(torch.equal(got[3], want[3]))
+    flips = {"edge_pixels": int(edge.sum()), "flipped_pixels": int(flipped.sum()),
+             "flipped_max_abs_err": flip_errs,
+             "other_max_abs_err": [float(torch.where(flipped, 0.0, d).max()) for d in diffs]}
+    if not (unexplained == 0 and live_eq and all(e <= t for e, t in zip(flip_errs, flip_tols))):
+        raise AssertionError(f"composite_fwd against its twin on a path's inputs: {flips}, "
+                             f"{unexplained} past tolerance off the edge, flip bounds "
+                             f"{flip_tols}, live equal {live_eq}")
+    del want
+    gen = np.random.default_rng(seed)
+    T_live = gT.shape[0]
+    cts = [torch.tensor(gen.normal(size=s), dtype=torch.float32, device=gT.device)
+           for s in ((T_live, ts * ts, 3), (T_live, ts * ts), (T_live, ts * ts))]
+    d_got = raster_cuda.composite_tiles_bwd(gT, cnt, *cts, ts, cfg, fwd_out=got)
+    torch.cuda.synchronize()
+    d_want = raster_cuda.composite_tiles_reference_bwd(gT, cnt, *cts, ts, cfg)
+    bwd_rec = check_bwd(d_got, d_want, "a path's inputs")
+    d_err = (d_got - d_want).abs().amax(dim=1)                         # [T, K]
+    del d_got, d_want
+    bwd_flips = {"edge_entries": int(edge_entries.sum()),
+                 "edge_entries_max_abs_err": float(torch.where(edge_entries, d_err, 0.0).max()),
+                 "other_entries_max_abs_err": float(torch.where(edge_entries, 0.0, d_err).max())}
+    fb = fwd_bound(gT, cnt, got, ts, cfg)
+    bb = bwd_bound(gT, cnt, fb, ts)
+    fwd = {"max_abs_err": max(float(d.max()) for d in diffs), **flips,
+           "ms": kernel_device_ms(lambda: raster_cuda.composite_tiles(gT, cnt, ts, cfg),
+                                  "composite_fwd_kernel"),
+           "plain_ms": cuda_ms(lambda: raster_cuda.composite_tiles_reference(gT, cnt, ts, cfg),
+                               iters=3, warmup=1),
+           "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"]}
+    bwd = {"max_abs_err": max(bwd_rec["max_abs_err"]), **bwd_flips,
+           "ms": kernel_device_ms(
+               lambda: raster_cuda.composite_tiles_bwd(gT, cnt, *cts, ts, cfg, fwd_out=got),
+               "composite_bwd_kernel"),
+           "plain_ms": cuda_ms(
+               lambda: raster_cuda.composite_tiles_reference_bwd(gT, cnt, *cts, ts, cfg),
+               iters=3, warmup=1),
+           "bound_ms": bb["bound_ms"], "bound_by": bb["bound_by"]}
+    return fwd, bwd, {"tiles": int(T_live), "K": int(gT.shape[2]),
+                      "read_entries": fb["read_entries"], **fb["pairs"]}
+
+
+def mse_loss_grad(splats, views, width: int, height: int, sh_degree: int, config, xi) -> float:
+    """The sharded train step's loss on one device: the squared error of
+    clip(rgb) over each view's pixels and channels, summed, over C * H * W *
+    3, through `rasterize_arrays`; one camera's graph at a time, its xi
+    gradient accumulated into `xi.grad`. Returns the loss."""
+    from gaussiansplattingregistration_tpu_torch.ops import math3d, se3
+    from gaussiansplattingregistration_tpu_torch.ops.rasterize import rasterize_arrays
+
+    norm = len(views) * height * width * 3.0
+    total = torch.zeros((), device=xi.device)
+    for viewmat, intrinsics, target in views:
+        T = se3.se3_exp(xi)
+        R = T[:3, :3]
+        rgb = rasterize_arrays(splats["means"] @ R.T + T[:3, 3],
+                               math3d.transform_covariance(splats["cov"], R),
+                               splats["opacity"], splats["features"], viewmat, intrinsics,
+                               width, height, sh_degree, torch.zeros(3, device=xi.device),
+                               config, device=xi.device)[0]
+        e = torch.sum((torch.clamp(rgb, 0.0, 1.0) - target) ** 2) / norm
+        e.backward()
+        total = total + e.detach()
+    return float(total)
+
+
+def step_parity(got, want) -> dict:
+    """A sharded step's (loss, xi gradient, dropped) against one device's
+    (loss, xi gradient): `ok` when the loss is within 1e-5 (relative), the
+    gradient within 1e-3 of its scale and nothing was dropped."""
+    (loss, grad, dropped), (want_loss, want_grad) = got, want
+    rec = {"loss": loss, "single_loss": want_loss,
+           "loss_rel_err": abs(loss - want_loss) / max(abs(want_loss), 1e-30),
+           "grad": grad.tolist(), "single_grad": want_grad.tolist(),
+           "grad_max_abs_err": float((grad - want_grad).abs().max()),
+           "grad_scale": float(want_grad.abs().max()), "dropped": dropped}
+    rec["ok"] = (rec["loss_rel_err"] <= 1e-5 and rec["grad_scale"] > 0
+                 and rec["grad_max_abs_err"] <= 1e-3 * rec["grad_scale"] and dropped == 0)
+    return rec
+
+
+def train_views(cloud, cams, config, dev):
+    """(viewmats [C, 4, 4], intrinsics [C, 3, 3], targets): each camera's
+    clipped render of `cloud` moved by a twist of norm ~0.02."""
+    from gaussiansplattingregistration_tpu_torch.ops import se3
+    from gaussiansplattingregistration_tpu_torch.pipelines import photometric
+
+    xi_true = torch.tensor([0.01, -0.008, 0.006, 0.008, -0.006, 0.01], device=dev)
+    targets = photometric.render_targets(cloud.transform(se3.se3_exp(xi_true)), cams,
+                                         config=config, device=dev)
+    return (torch.stack([c.viewmat for c in cams]), torch.stack([c.intrinsics for c in cams]),
+            torch.stack(targets))
+
+
+def sharded_stepper(mesh, cloud, cams, views, config, compositor, dev):
+    """`make_photometric_train_step` on this rank's shard of `cloud`, from
+    xi = 0. Returns run() -> (loss, the step's xi gradient, dropped); each
+    run takes one step."""
+    from gaussiansplattingregistration_tpu_torch.parallel.train_step import (
+        make_photometric_train_step,
+        shard_splats,
+    )
+
+    step, init, pad_targets = make_photometric_train_step(
+        mesh, cams[0].width, cams[0].height, cloud.sh_degree, config, compositor=compositor,
+        device=dev)
+    splats = shard_splats(cloud, mesh, device=dev)
+    targets = pad_targets(views[2])
+    state = list(init())
+
+    def run():
+        xi, opt, loss, dropped = step(*state, splats, views[0], views[1], targets)
+        state[:] = [xi, opt]
+        return float(loss), xi.grad.detach().clone(), int(dropped)
+
+    return run
+
+
+def single_stepper(cloud, cams, views, config, dev):
+    """The sharded step's single-device counterpart on the whole cloud:
+    `mse_loss_grad`, then Adam at lr 5e-3, from xi = 0. Returns run() ->
+    (loss, the step's xi gradient)."""
+    splats = {"means": cloud.xyz, "cov": cloud.covariance,
+              "opacity": cloud.get_opacity[:, 0], "features": cloud.get_features}
+    xi = torch.zeros(6, device=dev, requires_grad=True)
+    opt = torch.optim.Adam([xi], lr=5e-3)
+
+    def run():
+        xi.grad = None
+        loss = mse_loss_grad(splats, list(zip(*views)), cams[0].width, cams[0].height,
+                             cloud.sh_degree, config, xi)
+        opt.step()
+        return loss, xi.grad.detach().clone()
+
+    return run
+
+
+def frame_args(cloud, cam):
+    """`rasterize_arrays`' arguments for `cloud` seen from `cam`, black
+    background."""
+    return (cloud.xyz, cloud.covariance, cloud.get_opacity[:, 0], cloud.get_features,
+            cam.viewmat, cam.intrinsics, cam.width, cam.height, cloud.sh_degree,
+            torch.zeros(3, device=cloud.xyz.device))
+
+
+def abs_errs(got, want) -> list:
+    return [float((a - b).abs().max()) for a, b in zip(got, want)]
+
+
+def parallel_world1_phase(dev, raster_cuda) -> tuple:
+    """The multi-GPU path on NCCL at world size 1, in this process, at full
+    width: the bench cloud (1M splats at 1280x720, bench config) through
+    `rasterize_sharded` (within 1e-6 of `rasterize_arrays` on rgb, alpha and
+    depth) and `rasterize_depth_sharded` (rgb and alpha 1e-5, depth 1e-4,
+    nothing dropped), one composite_fwd each; one step of the sharded train
+    step per compositor on two cameras from xi = 0, each with exactly 2
+    composite_fwd and 2 composite_bwd launches and `step_parity` against
+    the single-device step; then ms per step of each beside the
+    single-device step on the same inputs, in turns. The group is made
+    here and destroyed at the end. Returns (record, the `kernels` fields of
+    composite_fwd and composite_bwd on the `sharded_train_step` path)."""
+    import torch.distributed as dist
+
+    from gaussiansplattingregistration_tpu_torch.models.camera import Camera
+    from gaussiansplattingregistration_tpu_torch.ops import rasterize as R
+    from gaussiansplattingregistration_tpu_torch.parallel import distributed
+    from gaussiansplattingregistration_tpu_torch.parallel.compositor import (
+        rasterize_depth_sharded,
+    )
+    from gaussiansplattingregistration_tpu_torch.parallel.sharded_raster import rasterize_sharded
+
+    if not distributed.initialize(device=dev):
+        raise AssertionError("a process group was up before parallel_world1")
+    try:
+        mesh = distributed.global_mesh(data=1)
+        cloud, cfg = bench_cloud(dev), bench_config()
+        f = WIDTH / (2 * math.tan(math.radians(70) / 2))
+        cams = [bench_camera(dev),
+                Camera.create(np.eye(3), [0.05, -0.03, 3.0], f, f, WIDTH, HEIGHT, device=dev)]
+        overflow = [int(R.rasterize_arrays_with_stats(*frame_args(cloud, c), cfg, device=dev)[3]
+                        ["live_tile_overflow"]) for c in cams]
+        single = R.rasterize_arrays(*frame_args(cloud, cams[0]), cfg, device=dev)
+        reset_launches(raster_cuda)
+        ag = rasterize_sharded(cloud, cams[0], mesh, config=cfg, device=dev)
+        *ds, dropped = rasterize_depth_sharded(cloud, cams[0], mesh, config=cfg, device=dev)
+        rec = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+               "splats": cloud.num_points, "width": WIDTH, "height": HEIGHT,
+               "render_launches": read_launches(raster_cuda), "live_tile_overflow": overflow,
+               "all_gather_max_abs_err": abs_errs(ag, single),
+               "depth_sharded_max_abs_err": abs_errs(ds, single), "dropped": int(dropped)}
+        e_ag, e_ds = rec["all_gather_max_abs_err"], rec["depth_sharded_max_abs_err"]
+        if not (max(e_ag) <= 1e-6 and e_ds[0] <= 1e-5 and e_ds[1] <= 1e-5 and e_ds[2] <= 1e-4
+                and rec["dropped"] == 0 and not any(overflow)
+                and rec["render_launches"] == {"composite_fwd": 2, "composite_bwd": 0}):
+            raise AssertionError(f"parallel_world1 renders: {rec}")
+        del ag, ds, single
+
+        views = train_views(cloud, cams, cfg, dev)
+        runs = {"single": single_stepper(cloud, cams, views, cfg, dev)}
+        want = runs["single"]()
+        path_launches = {"composite_fwd": 0, "composite_bwd": 0}
+        for comp in ("all_gather", "depth_sharded"):
+            runs[comp] = sharded_stepper(mesh, cloud, cams, views, cfg, comp, dev)
+            reset_launches(raster_cuda)
+            got = runs[comp]()
+            launches = read_launches(raster_cuda)
+            rec[f"{comp}_step"] = {**step_parity(got, want), "launches": launches}
+            if not (rec[f"{comp}_step"]["ok"]
+                    and launches == {"composite_fwd": 2, "composite_bwd": 2}):
+                raise AssertionError(f"parallel_world1 {comp} step: {rec[f'{comp}_step']}")
+            path_launches = {k: v + launches[k] for k, v in path_launches.items()}
+        turns = {k: [] for k in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for k in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    runs[k]()
+                torch.cuda.synchronize()
+                turns[k].append((time.perf_counter() - t0) * 1e3 / 3)
+        rec["ms_per_step"] = {k: sum(v) / len(v) for k, v in turns.items()}
+        rec["ms_per_step_turns"] = turns
+        fwd, bwd, rec["kernel_inputs"] = path_kernels(raster_cuda, frame_args(cloud, cams[1]),
+                                                      cfg, seed=3)
+    finally:
+        distributed.shutdown()
+    rec["path_launches"] = path_launches
+    fwd["launches"], bwd["launches"] = path_launches["composite_fwd"], \
+        path_launches["composite_bwd"]
+    return rec, fwd, bwd
+
+
+def config5_scene(dev):
+    """bench.py config 5's scene (`bench_photometric`): 100k splats of SH
+    degree 1 from default_rng(4), a 640x360 camera at 70° and its config
+    (max_tiles_per_splat=4, K=256) on backend "cuda"; a second camera
+    moved 0.05 sideways for the train step."""
+    from gaussiansplattingregistration_tpu_torch.models.camera import Camera
+    from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig
+
+    cloud = random_cloud(np.random.default_rng(4), 100_000, 1, (0.005, 0.02), dev)
+    w, h = 640, 360
+    f = w / (2 * math.tan(math.radians(70) / 2))
+    cams = [Camera.create(np.eye(3), pos, f, f, w, h, device=dev)
+            for pos in ([0.0, 0.0, 3.0], [0.05, -0.03, 3.0])]
+    cfg = RasterizeConfig(max_tiles_per_splat=4, max_splats_per_tile=256, tile_chunk=32,
+                          max_bwd_splats_per_tile=256, backend="cuda")
+    return cloud, cams, cfg
+
+
+def two_rank_worker(out_dir: str, dev) -> None:
+    """One rank of `parallel_two_ranks_phase`: RANK, WORLD_SIZE = 2 and
+    LOCAL_RANK = 0 (both ranks on the one card) from the environment,
+    joined over gloo on a FileStore in `out_dir`. On config 5's scene over a
+    (1 x 2) mesh: the all-gather render; the depth-sharded render at
+    transmittance_min = 0 and a K at which the single render truncates no
+    tile; one train step of each compositor on two cameras from xi = 0.
+    Rank 0 then runs each on one device. Writes `rank<r>.json` with the
+    numbers and this rank's launches."""
+    import torch.distributed as dist
+
+    from gaussiansplattingregistration_tpu_torch.ops import raster_cuda
+    from gaussiansplattingregistration_tpu_torch.ops import rasterize as R
+    from gaussiansplattingregistration_tpu_torch.parallel import collectives, distributed
+    from gaussiansplattingregistration_tpu_torch.parallel.compositor import (
+        rasterize_depth_sharded,
+    )
+    from gaussiansplattingregistration_tpu_torch.parallel.mesh import make_mesh
+    from gaussiansplattingregistration_tpu_torch.parallel.sharded_raster import rasterize_sharded
+
+    distributed.initialize(backend="gloo", device=dev,
+                           init_method="file://" + os.path.join(out_dir, "store"))
+    try:
+        rank = dist.get_rank()
+        mesh = make_mesh(data=1, splat=2)
+        cloud, cams, cfg = config5_scene(dev)
+        frame = frame_args(cloud, cams[0])
+        max_run = int(R.rasterize_arrays_with_stats(*frame, cfg, device=dev)[3]["max_run"])
+        k_exact = int(collectives.all_reduce(
+            torch.tensor(max(256, -(-max_run // 32) * 32), device=dev), "max"))
+        exact = dataclasses.replace(cfg, transmittance_min=0.0, max_splats_per_tile=k_exact,
+                                    max_bwd_splats_per_tile=None)
+        rec = {"rank": rank, "backend": dist.get_backend(), "mesh": [1, 2],
+               "k_exact": k_exact, "launches": {}}
+        reset_launches(raster_cuda)
+        ag = rasterize_sharded(cloud, cams[0], mesh, config=cfg, device=dev)
+        rec["launches"]["all_gather_render"] = read_launches(raster_cuda)
+        reset_launches(raster_cuda)
+        *ds, dropped = rasterize_depth_sharded(cloud, cams[0], mesh, config=exact, device=dev)
+        rec["launches"]["depth_sharded_render"] = read_launches(raster_cuda)
+        rec["dropped"] = int(dropped)
+        views = train_views(cloud, cams, cfg, dev)
+        steps = {}
+        for comp, config in (("all_gather", cfg), ("depth_sharded", exact)):
+            run = sharded_stepper(mesh, cloud, cams, views, config, comp, dev)
+            reset_launches(raster_cuda)
+            steps[comp] = run()
+            rec["launches"][f"{comp}_step"] = read_launches(raster_cuda)
+    finally:
+        distributed.shutdown()
+    if rank == 0:
+        *single, stats = R.rasterize_arrays_with_stats(*frame, cfg, device=dev)
+        *single_exact, stats_exact = R.rasterize_arrays_with_stats(*frame, exact, device=dev)
+        rec.update({"single_overflow_tiles": int(stats["overflow_tiles"]),
+                    "single_exact_overflow_tiles": int(stats_exact["overflow_tiles"]),
+                    "all_gather_max_abs_err": abs_errs(ag, single),
+                    "depth_sharded_max_abs_err": abs_errs(ds, single_exact)})
+        for comp, config in (("all_gather", cfg), ("depth_sharded", exact)):
+            rec[f"{comp}_step"] = step_parity(
+                steps[comp], single_stepper(cloud, cams, views, config, dev)())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+
+
+def parallel_two_ranks_phase(tmp) -> dict:
+    """Two processes on the one card over gloo (NCCL refuses two ranks on
+    one GPU), `two_rank_worker`: each rank's slab and depth slice run
+    through the CUDA kernels, and gloo copies every collective's CUDA
+    tensors through host memory. Gates, against one device in rank 0's
+    process: the all-gather render within 1e-5 (rgb, alpha) and 1e-4
+    (depth); the depth-sharded render within the same with nothing
+    dropped, where the single render truncates no tile; each compositor's
+    (1 x 2) train step by `step_parity`; on each rank one composite_fwd
+    per render and two of each kernel per step."""
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker", tmp], cwd=REPO,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {rank} failed (rc {p.returncode}):\n{err[-3000:]}")
+    ranks = [load_json(os.path.join(tmp, f"rank{r}.json")) for r in range(2)]
+    r0 = ranks[0]
+    rec = {"collectives": "gloo; CUDA tensors copied through host memory by gloo",
+           "ranks": [{k: r[k] for k in ("rank", "backend", "launches", "dropped")}
+                     for r in ranks],
+           **{k: r0[k] for k in ("k_exact", "single_overflow_tiles",
+                                 "single_exact_overflow_tiles", "all_gather_max_abs_err",
+                                 "depth_sharded_max_abs_err", "all_gather_step",
+                                 "depth_sharded_step")}}
+    render = {"composite_fwd": 1, "composite_bwd": 0}
+    step = {"composite_fwd": 2, "composite_bwd": 2}
+    ok_errs = [e <= tol for errs in (r0["all_gather_max_abs_err"],
+                                     r0["depth_sharded_max_abs_err"])
+               for e, tol in zip(errs, (1e-5, 1e-5, 1e-4))]
+    if not (all(ok_errs) and r0["single_exact_overflow_tiles"] == 0
+            and all(r["dropped"] == 0 and r["backend"] == "gloo" for r in ranks)
+            and r0["all_gather_step"]["ok"] and r0["depth_sharded_step"]["ok"]
+            and all(r["launches"] == {"all_gather_render": render, "depth_sharded_render": render,
+                                      "all_gather_step": step, "depth_sharded_step": step}
+                    for r in ranks)):
+        raise AssertionError(f"parallel_two_ranks: {rec}")
+    return rec
+
+
+def cli_sharded_eval_phase(dev, raster_cuda, tmp) -> dict:
+    """`evaluate --sharded on` (a world of one on NCCL, which the command
+    makes and ends) against `--sharded off` on the demo pair's three views
+    at 64x64, in this process: MSE, RMSE, PSNR and SSIM within 1e-5,
+    `lpips` null, one composite_fwd per camera each, no group left up."""
+    import torch.distributed as dist
+
+    data = os.path.join(REPO, "tests", "data")
+    cams_json, init_json, _ = demo_photometric_views(tmp, 64, dev)
+    common = ("evaluate", os.path.join(data, "demo_source.ply"),
+              os.path.join(data, "demo_target.ply"), "--transform", init_json,
+              "--cameras", cams_json, "--images-path", tmp, "--no-lpips")
+    out, launches = {}, {}
+    for mode in ("on", "off"):
+        reset_launches(raster_cuda)
+        out[mode] = port_cli_in_process(dev, *common, "--sharded", mode)
+        launches[mode] = read_launches(raster_cuda)
+    keys = ("mse", "rmse", "psnr", "ssim")
+    rec = {mode: {k: out[mode][k] for k in keys + ("lpips", "error_list")} for mode in out}
+    rec.update({"abs_diff": {k: abs(out["on"][k] - out["off"][k]) for k in keys},
+                "launches": launches, "group_left_up": dist.is_initialized()})
+    if not (all(d <= 1e-5 for d in rec["abs_diff"].values()) and out["on"]["lpips"] is None
+            and not rec["group_left_up"] and out["on"]["error_list"] == []
+            and all(v == {"composite_fwd": 3, "composite_bwd": 0} for v in launches.values())):
+        raise AssertionError(f"cli_sharded_eval: {rec}")
+    return rec
+
+
 def reset_launches(raster_cuda) -> None:
     raster_cuda.composite_tiles.launches = 0
     raster_cuda.composite_tiles_bwd.launches = 0
@@ -1435,6 +1918,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--rank-worker"]:
+        two_rank_worker(sys.argv[2], torch.device("cuda"))
+        return 0
     from gaussiansplattingregistration_tpu_torch.ops import _build, raster_cuda, se3
     from gaussiansplattingregistration_tpu_torch.ops import rasterize as R
     from gaussiansplattingregistration_tpu_torch.pipelines import photometric
@@ -1659,14 +2145,11 @@ def main() -> int:
     # `alive_pairs` and `candidate_pairs` (what the culled kernels test),
     # and the bound that charges the visibility test to every alive pair.
     fb = fwd_bound(gT, cnt, got, ts, cfg)
-    pairs, read_entries, entry_bytes = fb["pairs"], fb["read_entries"], fb["entry_bytes"]
+    pairs, read_entries = fb["pairs"], fb["read_entries"]
     ops_ms, bytes_ms, nbytes, bound_ms = (fb[k] for k in ("ops_bound_ms", "bytes_bound_ms",
                                                           "bytes", "bound_ms"))
     horizon_pairs = stats["mean_live"] * num_tiles * ts * ts
-    bwd_ops_ms = pairs["visible"] * (OPS_TEST + OPS_VISIBLE_BWD) / PEAK_FP32_FLOPS * 1e3
-    bwd_nbytes = entry_bytes + cnt.numel() * 4 + T_live * ts * ts * 5 * 4 + gT.numel() * 4
-    bwd_bytes_ms = bwd_nbytes / PEAK_BYTES_PER_S * 1e3
-    bwd_bound_ms = max(bwd_ops_ms, bwd_bytes_ms)
+    bb = bwd_bound(gT, cnt, fb, ts)
     invisible_tests = (pairs["alive"] - pairs["visible"]) * OPS_TEST
     alive_ops_ms = (pairs["visible"] * (OPS_TEST + OPS_VISIBLE_FWD) + invisible_tests) \
         / PEAK_FP32_FLOPS * 1e3
@@ -1689,8 +2172,8 @@ def main() -> int:
           "fwd_bwd_turns_ms": turns,
           "bwd_kernel_ms": bwd_ms, "bwd_kernel_wall_ms": bwd_wall_ms,
           "bwd_plain_ms": bwd_plain_ms,
-          "bwd_ops_bound_ms": bwd_ops_ms, "bwd_bytes": bwd_nbytes,
-          "bwd_bytes_bound_ms": bwd_bytes_ms, "bwd_bound_ms": bwd_bound_ms,
+          "bwd_ops_bound_ms": bb["ops_bound_ms"], "bwd_bytes": bb["bytes"],
+          "bwd_bytes_bound_ms": bb["bytes_bound_ms"], "bwd_bound_ms": bb["bound_ms"],
           "bwd_alive_ops_bound_ms": bwd_alive_ops_ms})
     del params, cts, gT, cnt, inputs, want, got
 
@@ -1830,27 +2313,48 @@ def main() -> int:
         emit({"phase": "cli_global_planes", "card": card, **rec,
               "seconds": time.perf_counter() - t0})
 
-    # 11. Every ported kernel on each main path, with that path's launches
+    # 11. The multi-GPU path: NCCL at world size 1 in this process at full
+    # width (its sharded train steps are the `sharded_train_step` path),
+    # two gloo ranks sharing the card in two processes, and `evaluate
+    # --sharded on` in this process.
+    t0 = time.perf_counter()
+    world1_rec, world1_fwd, world1_bwd = parallel_world1_phase(dev, raster_cuda)
+    emit({"phase": "parallel_world1", "card": card, **world1_rec,
+          "seconds": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rec = parallel_two_ranks_phase(tmp)
+        emit({"phase": "parallel_two_ranks", "card": card, **rec,
+              "seconds": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rec = cli_sharded_eval_phase(dev, raster_cuda, tmp)
+        emit({"phase": "cli_sharded_eval", "card": card, **rec,
+              "seconds": time.perf_counter() - t0})
+
+    # 12. Every ported kernel on each main path, with that path's launches
     # (counts set to 0 just before the path and read just after it) and
     # the numbers measured on that path's inputs: the full-width
-    # photometric run (bench config, K = 384) and the viewer's six frames
-    # (the viewer's config, K = 256; no backward).
+    # photometric run (bench config, K = 384), the viewer's six frames
+    # (the viewer's config, K = 256; no backward) and the world-1 sharded
+    # train steps (bench config; the inputs of their second camera).
     src = "gaussiansplattingregistration_tpu_torch/csrc/"
     ref = "gaussiansplattingregistration_tpu/ops/raster_pallas.py:"
     fwd = {"name": "composite_fwd", "route": "cuda", "source": src + "composite_fwd.cu",
            "replaces": ref + "173"}
+    bwd = {"name": "composite_bwd", "route": "cuda", "source": src + "composite_bwd.cu",
+           "replaces": ref + "270"}
     emit({"kernels": [
         {**fwd, "path": "photometric", "launches": launches_photo["composite_fwd"],
          "max_abs_err": max(errs), "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": fb["bound_by"], "library_ms": None},
         {**fwd, "path": "viewer", **viewer_fwd, "library_ms": None},
-        {"name": "composite_bwd", "route": "cuda", "source": src + "composite_bwd.cu",
-         "replaces": ref + "270", "path": "photometric",
+        {**bwd, "path": "photometric",
          "launches": launches_photo["composite_bwd"],
          "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-         "bound_ms": bwd_bound_ms,
-         "bound_by": "operations" if bwd_ops_ms >= bwd_bytes_ms else "bytes",
-         "library_ms": None},
+         "bound_ms": bb["bound_ms"], "bound_by": bb["bound_by"], "library_ms": None},
+        {**fwd, "path": "sharded_train_step", **world1_fwd, "library_ms": None},
+        {**bwd, "path": "sharded_train_step", **world1_bwd, "library_ms": None},
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

@@ -15,8 +15,10 @@ far, with its flags and the JSON keys it prints.
   merge-planes  per-plane HEM merging
   photometric   differentiable pose registration through the rasterizer
 
-Camera-sharded evaluation (`evaluate --sharded on`) raises: it follows in
-the multi-GPU slice of the port (ROADMAP.md).
+`evaluate --sharded on` splits the cameras over the ranks of the process
+group (`auto`: when there is more than one rank); the multi-GPU form is
+`torchrun --nproc-per-node N -m gaussiansplattingregistration_tpu_torch.cli
+evaluate --sharded on ...`, and only rank 0 prints.
 
 Transforms are passed as 16-value row-major 4x4 or JSON files
 {"transformation": [[...]]}. `--device cuda` (the default) needs a card;
@@ -56,9 +58,6 @@ def _save_transform(T, path, extra=None):
             json.dump(out, f, indent=2)
     print(json.dumps(out))
 
-
-_SHARDED_SLICE = ("camera-sharded evaluation is not ported yet: it comes with the "
-                  "multi-GPU slice (ROADMAP.md, Queue 1, item 17)")
 
 _ICP_TYPES = ("point_to_point", "point_to_plane", "colored", "generalized")
 _KERNELS = ("none", "tukey", "cauchy", "gm", "huber")
@@ -375,25 +374,35 @@ def cmd_view(args):
 
 
 def cmd_evaluate(args):
+    from gaussiansplattingregistration_tpu_torch.parallel import distributed
     from gaussiansplattingregistration_tpu_torch.pipelines.evaluation import (
         evaluate_registration,
+        evaluate_registration_sharded,
         load_cameras_json,
     )
     from gaussiansplattingregistration_tpu_torch.utils import io as gio
 
-    # "auto" is off until the sharded path is ported (with one device the
-    # JAX CLI's "auto" is off too).
-    if args.sharded == "on":
-        raise SystemExit(_SHARDED_SLICE)
-    first = gio.load_gaussian_cloud(args.first, device=args.device)
-    second = gio.load_gaussian_cloud(args.second, device=args.device)
-    result = evaluate_registration(
-        first, second, _load_transform(args.transform),
-        load_cameras_json(args.cameras, device=args.device), args.images_path,
-        background=[float(v) for v in args.background.split(",")], log_path=args.log,
-        use_lpips=not args.no_lpips, device=args.device,
-    )
-    print(json.dumps(result.as_log_dict()))
+    sharded = args.sharded == "on" or (args.sharded == "auto" and distributed.world_size() > 1)
+    # The group comes first: under torchrun it picks this rank's card.
+    created = sharded and distributed.initialize(device=args.device)
+    try:
+        first = gio.load_gaussian_cloud(args.first, device=args.device)
+        second = gio.load_gaussian_cloud(args.second, device=args.device)
+        common = (first, second, _load_transform(args.transform),
+                  load_cameras_json(args.cameras, device=args.device), args.images_path)
+        bg = [float(v) for v in args.background.split(",")]
+        if sharded:
+            result = evaluate_registration_sharded(*common, background=bg, log_path=args.log,
+                                                   device=args.device)
+        else:
+            result = evaluate_registration(*common, background=bg, log_path=args.log,
+                                           use_lpips=not args.no_lpips, device=args.device)
+        primary = distributed.is_primary()
+    finally:
+        if created:
+            distributed.shutdown()
+    if primary:
+        print(json.dumps(result.as_log_dict()))
 
 
 def cmd_merge(args):
@@ -599,8 +608,8 @@ def build_parser():
     sp.add_argument("--background", default="0,0,0")
     sp.add_argument("--no-lpips", action="store_true")
     sp.add_argument("--sharded", default="auto", choices=["auto", "on", "off"],
-                    help="camera-sharded evaluation (not ported yet: on raises, "
-                         "auto is off)")
+                    help="camera-sharded evaluation over the process group's ranks "
+                         "(auto: on when there is more than one)")
     add_device(sp)
     sp.set_defaults(fn=cmd_evaluate)
 

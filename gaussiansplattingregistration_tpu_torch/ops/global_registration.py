@@ -69,9 +69,13 @@ def _feature_correspondences(src_feat: torch.Tensor, tgt_feat: torch.Tensor, mut
 
 
 def _kabsch(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Rigid transforms from paired points, [B, n, 3] x [B, n, 3] -> [B, 4, 4]."""
-    p_bar = torch.mean(p, dim=1, keepdim=True)
-    q_bar = torch.mean(q, dim=1, keepdim=True)
+    """Rigid transforms from paired points, [B, n, 3] x [B, n, 3] -> [B, 4, 4].
+    The centroids are sums times the f32 reciprocal of n, as XLA computes
+    jnp.mean: where the n points coincide (an empty keep mask samples index
+    0 n times) H is rounding noise, and the rotation follows that noise."""
+    inv_n = 1.0 / p.shape[1]
+    p_bar = torch.sum(p, dim=1, keepdim=True) * inv_n
+    q_bar = torch.sum(q, dim=1, keepdim=True) * inv_n
     H = torch.einsum("bni,bnj->bij", p - p_bar, q - q_bar)
     R = math3d.kabsch_rotation(H)
     t = q_bar[:, 0] - torch.einsum("bij,bj->bi", R, p_bar[:, 0])
@@ -99,11 +103,15 @@ def _eval_hypotheses(
     replaces the draw from `generator`."""
     dev = src_pts.device
     if samples is None:
-        # With replacement, in proportion to the keep mask (uniformly when
-        # it is empty).
-        probs = torch.where(corr_mask.any(), corr_mask.to(torch.float32), 1.0)
+        # With replacement, in proportion to the keep mask. An empty mask
+        # gives every sample index 0, as jax.random.choice does with p = 0
+        # everywhere; the generator is consumed as for a uniform draw
+        # either way, so no host read decides it.
+        any_kept = corr_mask.any()
+        probs = torch.where(any_kept, corr_mask.to(torch.float32), 1.0)
         samples = torch.multinomial(probs, batch * ransac_n, replacement=True,
                                     generator=generator).reshape(batch, ransac_n)
+        samples = torch.where(any_kept, samples, 0)
     samples = as_tensor(samples, dev, torch.int64)
     p = src_pts[samples]                      # [B, n, 3]
     q = tgt_pts[corr_idx[samples]]            # [B, n, 3]

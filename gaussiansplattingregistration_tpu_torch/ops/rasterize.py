@@ -207,7 +207,9 @@ def _build_tile_table(
     tile id num_tiles and sort last; each tile keeps its front-most K.
 
     `ty_offset`/`tiles_y_window` restrict binning to a horizontal tile slab
-    with slab-local tile ids.
+    with slab-local tile ids. The fused key's depth bits follow the whole
+    image's tile count, so a slab's tiles sort, tie-break and truncate as
+    on one device (the JAX package's slab keys with its own count).
 
     Returns (table [T, K] int32 entry ids or -1, sorted_entry [N*C] int32,
     live [N*C] bool (sorted entry in the table and within the first KB
@@ -262,10 +264,10 @@ def _build_tile_table(
 
     # Fused key in int64 (torch has no unsigned 32-bit sort); its value is
     # the JAX package's u32 key.
-    tile_bits = max(int(num_tiles + 1).bit_length(), 1)
+    tile_bits = max(int(tiles_x * tiles_y + 1).bit_length(), 1)
     depth_bits = 32 - tile_bits
     if depth_bits < 8:
-        raise ValueError(f"too many tiles for fused sort key: {num_tiles}")
+        raise ValueError(f"too many tiles for fused sort key: {tiles_x * tiles_y}")
     dbits = (torch.clamp_min(depth, 0.0).to(torch.float32).view(torch.int32)
              .to(torch.int64) & 0xFFFFFFFF)
     key = (tile_id << depth_bits) | (dbits >> (32 - depth_bits))[:, None]

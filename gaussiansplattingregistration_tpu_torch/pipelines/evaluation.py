@@ -7,10 +7,8 @@ current transform, render from each camera, compare to
 write a JSON log with the reference's `EvaluationObject` schema. Also the
 loaders photometric registration shares: a 3DGS `cameras.json` and
 ground-truth PNGs, read by the stdlib PNG reader (`utils/png.py`), so no
-imaging package is needed.
-
-The camera-sharded variant (`evaluate_registration_sharded`) belongs to the
-multi-GPU part of the port and is not here yet.
+imaging package is needed. `evaluate_registration_sharded` is the
+camera-sharded variant over the ranks of a mesh (`parallel/sharded_eval.py`).
 """
 
 from __future__ import annotations
@@ -79,6 +77,30 @@ def load_cameras_json(path: str, device=None) -> List[Camera]:
     return [Camera.from_json_entry(e, device=device) for e in entries]
 
 
+def _ground_truth(camera: Camera, images_path: str, errors: List[str]) -> Optional[np.ndarray]:
+    """`camera`'s GT image, or None after noting in `errors` that it is
+    missing or that its size differs from the camera's."""
+    try:
+        gt = load_image(os.path.join(images_path, camera.image_name + ".png"))
+    except OSError as e:
+        errors.append(str(e))
+        return None
+    if gt.shape[:2] != (camera.height, camera.width):
+        errors.append(
+            f"{camera.image_name}: image {gt.shape[:2]} != camera "
+            f"({camera.height}, {camera.width})"
+        )
+        return None
+    return gt
+
+
+def _write_log(result: EvaluationResult, log_path: str,
+               registration_data: Optional[dict]) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(log_path)), exist_ok=True)
+    with open(log_path, "w") as f:
+        json.dump(result.as_log_dict(registration_data), f, indent=2)
+
+
 def evaluate_registration(
     cloud_first: GaussianCloud,
     cloud_second: GaussianCloud,
@@ -113,17 +135,8 @@ def evaluate_registration(
     for i, camera in enumerate(cameras):
         if progress_callback is not None:
             progress_callback(int((i + 1) / len(cameras) * 100))
-        image_path = os.path.join(images_path, camera.image_name + ".png")
-        try:
-            gt = load_image(image_path)
-        except OSError as e:
-            errors.append(str(e))
-            continue
-        if gt.shape[:2] != (camera.height, camera.width):
-            errors.append(
-                f"{camera.image_name}: image {gt.shape[:2]} != camera "
-                f"({camera.height}, {camera.width})"
-            )
+        gt = _ground_truth(camera, images_path, errors)
+        if gt is None:
             continue
         rgb, _, _ = rasterize(merged, camera, background=background, config=config, device=dev)
         m = metrics_ops.all_metrics(torch.clamp(rgb, 0.0, 1.0), torch.as_tensor(gt, device=dev),
@@ -146,7 +159,76 @@ def evaluate_registration(
         lpips_weights=getattr(lpips_callable, "source", None),
     )
     if log_path:
-        os.makedirs(os.path.dirname(os.path.abspath(log_path)), exist_ok=True)
-        with open(log_path, "w") as f:
-            json.dump(result.as_log_dict(registration_data), f, indent=2)
+        _write_log(result, log_path, registration_data)
+    return result
+
+
+def evaluate_registration_sharded(
+    cloud_first: GaussianCloud,
+    cloud_second: GaussianCloud,
+    transformation,
+    cameras: Sequence[Camera],
+    images_path: str,
+    background=(0.0, 0.0, 0.0),
+    log_path: Optional[str] = None,
+    registration_data: Optional[dict] = None,
+    config: RasterizeConfig = RasterizeConfig(),
+    mesh=None,
+    device=None,
+) -> EvaluationResult:
+    """Camera-sharded (data-parallel) evaluation over the ranks of `mesh`,
+    on `device` (default `cuda`); every rank calls it.
+
+    Each rank renders and scores its slice of the camera batch
+    (parallel/sharded_eval.py) and the means reduce with one all-reduce.
+    Without a mesh, it joins the default group (`distributed.initialize`,
+    a world of one without torchrun), splits the cameras over all its
+    ranks, and ends the group again if this call made it. Cameras whose GT
+    image is missing, or whose size differs from their own or from the
+    batch's one resolution, land in `error_list` as in the loop path. LPIPS and the per-camera breakdown are not computed:
+    use `evaluate_registration` for those. Only the primary rank writes
+    `log_path`."""
+    from gaussiansplattingregistration_tpu_torch.parallel import distributed
+    from gaussiansplattingregistration_tpu_torch.parallel.sharded_eval import (
+        evaluate_images_sharded,
+    )
+
+    dev = resolve_device(device)
+    made_group = mesh is None and distributed.initialize(device=dev)
+    try:
+        if mesh is None:
+            mesh = distributed.global_mesh(data=distributed.world_size())
+        merged = cloud_first.merge(cloud_second, transformation)
+        usable: List[Camera] = []
+        gts: List[np.ndarray] = []
+        errors: List[str] = []
+        for camera in cameras:
+            gt = _ground_truth(camera, images_path, errors)
+            if gt is None:
+                continue
+            if usable and (camera.width, camera.height) != (usable[0].width, usable[0].height):
+                errors.append(
+                    f"{camera.image_name}: resolution ({camera.height}, "
+                    f"{camera.width}) != batch ({usable[0].height}, {usable[0].width}) — "
+                    "sharded evaluation needs one shared resolution"
+                )
+                continue
+            usable.append(camera)
+            gts.append(gt)
+        if usable:
+            agg = evaluate_images_sharded(merged, usable, gts, mesh, background=background,
+                                          config=config, device=dev)
+        else:
+            agg = {k: float("nan") for k in ("mse", "rmse", "ssim", "psnr")}
+        primary = distributed.is_primary()
+    finally:
+        if made_group:
+            distributed.shutdown()
+
+    result = EvaluationResult(
+        mse=agg["mse"], rmse=agg["rmse"], ssim=agg["ssim"], psnr=agg["psnr"],
+        lpips=None, per_camera=[], error_list=errors, lpips_weights=None,
+    )
+    if log_path and primary:
+        _write_log(result, log_path, registration_data)
     return result

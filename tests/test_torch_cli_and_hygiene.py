@@ -200,6 +200,8 @@ def _port_sources():
         yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "scripts", "torch_profile_frame.py")
+    yield os.path.join(REPO, "scripts", "torch_dryrun_multigpu.py")
+    yield os.path.join(REPO, "tests", "torch_dist_workers.py")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -215,8 +217,14 @@ def test_port_imports_no_jax_and_no_jax_package():
                 ("ops", "features.py"), ("ops", "global_registration.py"),
                 ("ops", "plane_fitting.py"), ("pipelines", "planes.py"),
                 ("models", "workspace.py"), ("pipelines", "viewer.py"), ("utils", "logging.py"),
-                ("utils", "checkpoint.py"), ("utils", "profiling.py")):
+                ("utils", "checkpoint.py"), ("utils", "profiling.py"),
+                *(("parallel", f) for f in ("__init__.py", "distributed.py", "mesh.py",
+                                            "collectives.py", "sharded_raster.py",
+                                            "compositor.py", "sharded_eval.py",
+                                            "train_step.py"))):
         assert os.path.join(PORT, *mod) in sources
+    for extra in (("scripts", "torch_dryrun_multigpu.py"), ("tests", "torch_dist_workers.py")):
+        assert os.path.isfile(os.path.join(REPO, *extra))
     offenders = [
         (os.path.relpath(path, REPO), mod)
         for path in sources

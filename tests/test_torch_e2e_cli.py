@@ -8,8 +8,8 @@ port's render of the pair merged under its true transform, written by
 `utils/png.py`. The photometric step runs 20 Adam steps where the JAX
 test runs 80: it starts from the multiscale pose, already inside the
 threshold, and chip_smoke.py's `cli_e2e` phase runs the 80 on the card.
-`register` and `merge` are also held against the JAX CLI's outputs, and
-the option not ported yet and misused options must raise.
+`register` and `merge` are also held against the JAX CLI's outputs,
+misused options must raise, and no option is left unported.
 """
 
 import json
@@ -140,6 +140,12 @@ def test_plane_inlier_flags_must_pair(args):
 
 
 def test_unported_options_raise():
-    with pytest.raises(SystemExit, match="sharded"):
+    """`evaluate --sharded on` is ported: it no longer exits as unported but
+    makes its process group, reaches the cameras file (missing here) and
+    ends the group it made."""
+    import torch.distributed as dist
+
+    with pytest.raises(FileNotFoundError, match="c.json"):
         port_main(["evaluate", SRC, TGT, "--cameras", "c.json", "--images-path", ".",
                    "--sharded", "on", "--device", "cpu"])
+    assert not dist.is_initialized()

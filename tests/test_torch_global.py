@@ -199,6 +199,65 @@ def test_eval_hypotheses_matches_jax(prepared, checkers):
     np.testing.assert_allclose(T.numpy(), np.asarray(jT), atol=1e-4)
 
 
+@pytest.mark.parametrize("checkers", [(), CHECKERS, (("normal", 0.5),)])
+def test_eval_hypotheses_empty_mask_matches_jax(prepared, checkers):
+    """An all-false keep mask: JAX's choice with p = 0 everywhere samples
+    index 0, and so does the port's own draw. The n coinciding points make
+    H rounding noise; the centroids round as XLA's, so the poses follow the
+    same noise: T within 1e-5, fitness 0 (or -1 where a checker fails)."""
+    prep = prepared
+    empty = jnp.zeros_like(prep["corr_mask"])
+    kinds = tuple(k for k, _ in checkers)
+    values = tuple(v for _, v in checkers)
+    key = jax.random.PRNGKey(7)
+    j_samples = np.asarray(jax.random.choice(key, prep["src"].num_points, shape=(256, 3),
+                                             replace=True, p=empty.astype(jnp.float32)))
+    assert not j_samples.any()
+    jfit, jrmse, jT = jgr._eval_hypotheses(
+        key, prep["src"].points, prep["tgt"].points, prep["src"].normals, prep["tgt"].normals,
+        prep["corr_idx"], empty, prep["mc"], 3, 256, kinds, jnp.asarray(values, jnp.float32))
+    inputs = port_inputs(prep)[:5] + (torch.zeros_like(port_inputs(prep)[5]),)
+    generator = torch.Generator()
+    generator.manual_seed(0)
+    fit, rmse, T = gr._eval_hypotheses(generator, *inputs, prep["mc"], 3, 256, kinds, values)
+    fit0, _, T0 = gr._eval_hypotheses(None, *inputs, prep["mc"], 3, 256, kinds, values,
+                                      samples=np.zeros((256, 3), np.int64))
+    np.testing.assert_array_equal(fit.numpy(), fit0.numpy())
+    np.testing.assert_array_equal(T.numpy(), T0.numpy())
+    np.testing.assert_array_equal(fit.numpy(), np.asarray(jfit))
+    assert set(np.unique(fit.numpy())) <= {0.0, -1.0}
+    np.testing.assert_allclose(rmse.numpy(), np.asarray(jrmse), atol=1e-5)
+    np.testing.assert_allclose(T.numpy(), np.asarray(jT), atol=1e-5)
+
+
+def test_ransac_registration_empty_mask_matches_jax(golden, monkeypatch):
+    """`ransac_registration` where the feature matching keeps no pair (as
+    `mutual_filter` can leave it): both packages run every batch, report
+    fitness 0 and not converged, and return the same T."""
+    def empty_mask(real):
+        def correspondences(src_f, tgt_f, mutual_filter):
+            idx, keep = real(src_f, tgt_f, mutual_filter)
+            return idx, keep & False
+        return correspondences
+
+    monkeypatch.setattr(jgr, "_feature_correspondences", empty_mask(jgr._feature_correspondences))
+    monkeypatch.setattr(gr, "_feature_correspondences", empty_mask(gr._feature_correspondences))
+    vox = float(golden["voxel_size"])
+    params = P.RANSACRegistrationParams(
+        voxel_size=vox, max_correspondence=float(golden["max_correspondence"]),
+        mutual_filter=True, checkers=tuple(P.CorrespondenceChecker(k, v) for k, v in CHECKERS),
+        max_iteration=1024, confidence=0.999)
+    want = jgr.ransac_registration(
+        JPointCloud(points=jnp.asarray(golden["source"], jnp.float32)),
+        JPointCloud(points=jnp.asarray(golden["target"], jnp.float32)), params, seed=0)
+    got = gr.ransac_registration(PointCloud(points=t(golden["source"])),
+                                 PointCloud(points=t(golden["target"])), params, seed=0)
+    assert got.fitness == want.fitness == 0.0
+    assert got.converged is want.converged is False
+    assert got.num_iterations == want.num_iterations == 1024
+    np.testing.assert_allclose(got.transformation, want.transformation, atol=1e-5)
+
+
 def test_ransac_search_with_jax_draws_matches_jax(prepared):
     prep = prepared
     kinds = tuple(k for k, _ in CHECKERS)
