@@ -22,7 +22,10 @@ path: NCCL at world size 1 in this process on the bench cloud (sharded and
 depth-sharded renders, the sharded train step of each compositor against
 one device, with its time), two gloo ranks sharing the card in two
 processes of this script (`--rank-worker`) on bench.py config 5's scene,
-and `evaluate --sharded on` against `--sharded off`. It prints one JSON
+and `evaluate --sharded on` against `--sharded off`. Then bench_torch.py,
+the port's benchmark runner, in a subprocess (its gates held, its five
+metrics published), and both kernels against their twins on its config
+5's frame. The scenes are bench_torch.py's draws. It prints one JSON
 line per phase. The last lines are the `kernels` record (one entry per
 kernel and main path), the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
@@ -48,6 +51,21 @@ import zlib
 
 import numpy as np
 import torch
+
+from bench_torch import (
+    card_line,
+    global_draws,
+    hem_cloud,
+    icp_draws,
+    photometric_camera,
+    photometric_cloud,
+    photometric_config,
+    point_cloud,
+    random_cloud,
+    splat_arrays,
+    two_clouds,
+    uniform_draws,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet, dense): FP32 outside the
@@ -372,19 +390,6 @@ def pose_error(T_est, T_off) -> float:
     return float(torch.linalg.norm(se3.se3_log(residual)))
 
 
-def _bench_draws():
-    """bench.py's scene arrays, drawn from numpy's default_rng(0) in its
-    order: xyz, scales, quats, opacity logits, features."""
-    rng = np.random.default_rng(0)
-    n = N_SPLATS
-    xyz = rng.uniform(-1, 1, size=(n, 3)).astype(np.float32)
-    scales = rng.uniform(0.002, 0.006, size=(n, 3)).astype(np.float32)
-    quats = rng.normal(size=(n, 4)).astype(np.float32)
-    logits = rng.normal(0.0, 1.0, size=n)
-    features = (rng.normal(size=(n, 1, 3)) * 0.3).astype(np.float32)
-    return xyz, scales, quats, logits, features
-
-
 def bench_camera(dev):
     from gaussiansplattingregistration_tpu_torch.models.camera import Camera
 
@@ -402,15 +407,8 @@ def bench_config():
 def bench_scene(dev):
     """The bench scene (bench.py) on `dev`: (rasterize_arrays arguments,
     config)."""
-    from gaussiansplattingregistration_tpu_torch.ops import math3d
-
-    xyz, scales, quats, logits, features = _bench_draws()
-    opacity = (1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
-    cov = math3d.covariance_from_scaling_rotation(
-        torch.as_tensor(scales, device=dev), torch.as_tensor(quats, device=dev))
     cam = bench_camera(dev)
-    args = (torch.as_tensor(xyz, device=dev), cov, torch.as_tensor(opacity, device=dev),
-            torch.as_tensor(features, device=dev), cam.viewmat, cam.intrinsics,
+    args = (*splat_arrays(uniform_draws(N_SPLATS), dev), cam.viewmat, cam.intrinsics,
             WIDTH, HEIGHT, 0, torch.zeros(3, device=dev))
     return args, bench_config()
 
@@ -419,7 +417,7 @@ def bench_cloud(dev):
     """The bench scene's splats as a GaussianCloud (the same draws)."""
     from gaussiansplattingregistration_tpu_torch.models.gaussian_cloud import GaussianCloud
 
-    xyz, scales, quats, logits, features = _bench_draws()
+    xyz, scales, quats, logits, features = uniform_draws(N_SPLATS)
     return GaussianCloud.create(xyz, features, np.zeros((N_SPLATS, 0, 3), np.float32),
                                 logits, np.log(scales), quats, sh_degree=0, device=dev)
 
@@ -522,46 +520,6 @@ def check_bwd(got, want, where: str) -> dict:
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"composite_bwd is not finite ({where})")
     return {"max_abs_err": err, "twin_max_abs": scale}
-
-
-def two_clouds(rng, n, offset=(0.08, -0.05, 0.04), angle=0.06, colors=False):
-    """bench.py's `_two_clouds` draws as numpy: a wavy surface `tgt`, its
-    copy `src` = R tgt + offset (R about z by `angle`), colors or None, and
-    the 4x4 T_src with src = T_src tgt."""
-    pts = rng.uniform(-1.0, 1.0, size=(n, 3)).astype(np.float32)
-    pts[:, 2] = 0.3 * np.sin(3.0 * pts[:, 0]) + 0.2 * np.cos(2.0 * pts[:, 1])
-    pts[:, 2] += 0.01 * rng.normal(size=n).astype(np.float32)
-    c, s = math.cos(angle), math.sin(angle)
-    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
-    src = pts @ R.T + np.asarray(offset, np.float32)
-    col = (0.5 + 0.5 * np.sin(5.0 * pts)).astype(np.float32) if colors else None
-    T_src = np.eye(4)
-    T_src[:3, :3], T_src[:3, 3] = R, offset
-    return src, pts, col, T_src
-
-
-def random_cloud(rng, n, sh_degree, scale_range, dev):
-    """tests/scene_utils.py's `make_random_cloud` draws, as a port cloud."""
-    from gaussiansplattingregistration_tpu_torch.models.gaussian_cloud import GaussianCloud
-
-    k_rest = (sh_degree + 1) ** 2 - 1
-    quats = rng.normal(size=(n, 4))
-    return GaussianCloud.create(
-        xyz=rng.normal(size=(n, 3)).astype(np.float32),
-        features_dc=rng.normal(size=(n, 1, 3)).astype(np.float32) * 0.5,
-        features_rest=rng.normal(size=(n, k_rest, 3)).astype(np.float32) * 0.1,
-        opacity=rng.normal(size=(n, 1)).astype(np.float32),
-        scaling=np.log(rng.uniform(*scale_range, size=(n, 3))).astype(np.float32),
-        rotation=quats.astype(np.float32),
-        sh_degree=sh_degree, device=dev,
-    )
-
-
-def point_cloud(points, colors=None, dev="cuda"):
-    from gaussiansplattingregistration_tpu_torch.models.point_cloud import PointCloud
-
-    return PointCloud(points=torch.as_tensor(points, device=dev),
-                      colors=None if colors is None else torch.as_tensor(colors, device=dev))
 
 
 def sqdist_rows(query, data, idx):
@@ -696,7 +654,7 @@ def hem_phase(dev):
     from gaussiansplattingregistration_tpu_torch.ops import hem, knn
 
     n = HEM_SPLATS
-    cloud = random_cloud(np.random.default_rng(3), n, 1, (0.04, 0.10), dev)
+    cloud = hem_cloud(n, dev)
     params = GaussianMixtureParams(cluster_level=3)
     t0 = time.perf_counter()
     first, _ = hem.create_mixture(cloud, params, seed=0, with_stats=True)
@@ -936,9 +894,6 @@ def feature_nn_mismatches(query, data, idx_a, idx_b) -> dict:
             "non_near_tie_mismatches": int(rows.numel()) - ties}
 
 
-CFG2_OFFSET, CFG2_ANGLE = (0.3, -0.2, 0.15), 0.4
-
-
 def global_case(dev, n: int, voxel: float, with_refine: bool) -> dict:
     """bench.py config 2 at n points (`two_clouds(rng(2), n, ...)`): FPFH +
     RANSAC (edge-length 0.9 and distance 1.5 voxel checkers, 100000
@@ -951,8 +906,7 @@ def global_case(dev, n: int, voxel: float, with_refine: bool) -> dict:
     from gaussiansplattingregistration_tpu_torch.ops import global_registration as gr
     from gaussiansplattingregistration_tpu_torch.ops import icp
 
-    src, tgt, col, T_src = two_clouds(np.random.default_rng(2), n, offset=CFG2_OFFSET,
-                                      angle=CFG2_ANGLE, colors=True)
+    src, tgt, col, T_src = global_draws(n)
     truth = np.linalg.inv(T_src)
     source, target = point_cloud(src, col, dev), point_cloud(tgt, col, dev)
     ransac = P.RANSACRegistrationParams(
@@ -1745,17 +1699,8 @@ def config5_scene(dev):
     degree 1 from default_rng(4), a 640x360 camera at 70° and its config
     (max_tiles_per_splat=4, K=256) on backend "cuda"; a second camera
     moved 0.05 sideways for the train step."""
-    from gaussiansplattingregistration_tpu_torch.models.camera import Camera
-    from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig
-
-    cloud = random_cloud(np.random.default_rng(4), 100_000, 1, (0.005, 0.02), dev)
-    w, h = 640, 360
-    f = w / (2 * math.tan(math.radians(70) / 2))
-    cams = [Camera.create(np.eye(3), pos, f, f, w, h, device=dev)
-            for pos in ([0.0, 0.0, 3.0], [0.05, -0.03, 3.0])]
-    cfg = RasterizeConfig(max_tiles_per_splat=4, max_splats_per_tile=256, tile_chunk=32,
-                          max_bwd_splats_per_tile=256, backend="cuda")
-    return cloud, cams, cfg
+    cams = [photometric_camera(dev, pos) for pos in ((0.0, 0.0, 3.0), (0.05, -0.03, 3.0))]
+    return photometric_cloud(100_000, dev), cams, photometric_config()
 
 
 def two_rank_worker(out_dir: str, dev) -> None:
@@ -1902,6 +1847,62 @@ def cli_sharded_eval_phase(dev, raster_cuda, tmp) -> dict:
     return rec
 
 
+BENCH_HEADLINE = "rasterize_fwd_bwd_pixels_per_s_per_chip_1M_splats"
+BENCH_SECONDARIES = ("icp_p2p_iters_per_s_100k_pts",
+                     "global_fpfh_ransac_plus_colored_refine_wall_s_50k_pts",
+                     "hem3_plus_multiscale_wall_s_200k_splats",
+                     "photometric_pose_opt_steps_per_s_100k_splats_640x360")
+
+
+def bench_phase(dev, raster_cuda, tmp) -> tuple:
+    """bench_torch.py on the card, in a subprocess of at most 400 s: rc 0;
+    the headline published by name with a value > 0, its uniform-scene
+    truncation oracle >= 40 dB, no tile over the backward cap, no live tile
+    past max_live_tiles, 32 + 32 kernel launches over the timed frames; the
+    four secondaries by bench.py's names, none failed, config 5's timed
+    steps 10 + 10 launches. Then both kernels on config 5's own frame
+    (`path_kernels`; seed 5 for the cotangents). Returns (record, the
+    `kernels` fields of composite_fwd and of composite_bwd on that path,
+    with config 5's launches from the subprocess)."""
+    extra = os.path.join(tmp, "extra.json")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "bench_torch.py"),
+                           "--extra-out", extra],
+                          cwd=REPO, capture_output=True, text=True, timeout=400)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_torch.py failed (rc {proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    head = json.loads(proc.stdout.strip().splitlines()[-1])
+    detail = head["detail"]
+    secondary = {r["metric"]: r for r in load_json(extra)["secondary"]}
+    photo = secondary.get(BENCH_SECONDARIES[3], {}).get("detail", {})
+    rec = {"subprocess_seconds": seconds,
+           "log": [ln for ln in proc.stderr.splitlines() if ln.startswith("# ")],
+           "headline": head,
+           "values": {BENCH_HEADLINE: head.get("value"),
+                      **{m: secondary.get(m, {}).get("value") for m in BENCH_SECONDARIES}},
+           "secondary": list(secondary.values())}
+    steps = {"composite_fwd": 10, "composite_bwd": 10}
+    failed = [r for r in secondary.values() if "error" in r]
+    if not (head.get("metric") == BENCH_HEADLINE and head["value"] > 0
+            and detail["truncation_psnr_db"] >= 40.0
+            and detail["bwd_cap_violations"] == 0 and detail["live_tile_overflow"] == 0
+            and detail["launches"] == {"composite_fwd": 32, "composite_bwd": 32}
+            and sorted(secondary) == sorted(BENCH_SECONDARIES) and not failed
+            and photo.get("launches") == steps):
+        raise AssertionError(f"bench: {rec}")
+
+    cloud, cams, cfg = config5_scene(dev)
+    fwd, bwd, counts = path_kernels(raster_cuda, frame_args(cloud, cams[0]), cfg, seed=5)
+    rec["config5_frame"] = counts
+    for fields, name in ((fwd, "composite_fwd"), (bwd, "composite_bwd")):
+        fields["launches"] = photo["launches"][name]
+        fields["launches_per_step"] = photo["launches"][name] / steps[name]
+    return rec, fwd, bwd
+
+
 def reset_launches(raster_cuda) -> None:
     raster_cuda.composite_tiles.launches = 0
     raster_cuda.composite_tiles_bwd.launches = 0
@@ -1930,10 +1931,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # 1. Card and toolchain.
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_line(dev)
     print(card, flush=True)
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
@@ -2276,11 +2274,7 @@ def main() -> int:
     # 9. The registration path (plain torch on the card, no kernel of its
     # own): neighbor search, ICP, HEM, multiscale at bench.py's sizes, then
     # the end-to-end CLI flow, whose evaluation runs composite_fwd.
-    rng = np.random.default_rng(1)
-    surf_src, surf_tgt, _, T_surf = two_clouds(rng, 100_000)
-    vol = rng.uniform(-1, 1, size=(100_000, 3)).astype(np.float32)
-    T_vol = se3.se3_exp(torch.tensor([0.01, -0.02, 0.01, 0.03, -0.02, 0.01])).numpy()
-    vol_src = (vol @ T_vol[:3, :3].T + T_vol[:3, 3]).astype(np.float32)
+    surf_src, surf_tgt, T_surf, vol_src, vol, T_vol = icp_draws(100_000)
     for phase, fn in (("knn", lambda: knn_phase(dev, surf_src, surf_tgt, (vol, vol_src))),
                       ("icp", lambda: icp_phase(dev, (surf_src, surf_tgt, T_surf),
                                                 (vol_src, vol, T_vol.astype(np.float64))))):
@@ -2332,12 +2326,22 @@ def main() -> int:
         emit({"phase": "cli_sharded_eval", "card": card, **rec,
               "seconds": time.perf_counter() - t0})
 
-    # 12. Every ported kernel on each main path, with that path's launches
+    # 12. bench_torch.py, the port's benchmark runner, on the card, and both
+    # kernels on the inputs of its config 5 (bench.py's photometric config).
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        bench_rec, bench_fwd, bench_bwd = bench_phase(dev, raster_cuda, tmp)
+        emit({"phase": "bench", "card": card, **bench_rec,
+              "seconds": time.perf_counter() - t0})
+
+    # 13. Every ported kernel on each main path, with that path's launches
     # (counts set to 0 just before the path and read just after it) and
     # the numbers measured on that path's inputs: the full-width
     # photometric run (bench config, K = 384), the viewer's six frames
-    # (the viewer's config, K = 256; no backward) and the world-1 sharded
-    # train steps (bench config; the inputs of their second camera).
+    # (the viewer's config, K = 256; no backward), the world-1 sharded
+    # train steps (bench config; the inputs of their second camera) and
+    # bench_torch.py's config 5 (K = 256; its 10 timed steps' launches,
+    # counted in its own process).
     src = "gaussiansplattingregistration_tpu_torch/csrc/"
     ref = "gaussiansplattingregistration_tpu/ops/raster_pallas.py:"
     fwd = {"name": "composite_fwd", "route": "cuda", "source": src + "composite_fwd.cu",
@@ -2355,6 +2359,8 @@ def main() -> int:
          "bound_ms": bb["bound_ms"], "bound_by": bb["bound_by"], "library_ms": None},
         {**fwd, "path": "sharded_train_step", **world1_fwd, "library_ms": None},
         {**bwd, "path": "sharded_train_step", **world1_bwd, "library_ms": None},
+        {**fwd, "path": "bench_config5", **bench_fwd, "library_ms": None},
+        {**bwd, "path": "bench_config5", **bench_bwd, "library_ms": None},
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

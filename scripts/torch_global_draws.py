@@ -55,8 +55,7 @@ def main() -> int:
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip(), flush=True)
 
-    src, tgt, col, T_src = cs.two_clouds(np.random.default_rng(2), 50_000, offset=cs.CFG2_OFFSET,
-                                         angle=cs.CFG2_ANGLE, colors=True)
+    src, tgt, col, T_src = cs.global_draws(50_000)
     truth = np.linalg.inv(T_src)
     S, T = cs.point_cloud(src, col, dev), cs.point_cloud(tgt, col, dev)
     ransac = P.RANSACRegistrationParams(
