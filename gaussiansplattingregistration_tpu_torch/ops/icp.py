@@ -38,6 +38,7 @@ from gaussiansplattingregistration_tpu_torch.models.point_cloud import PointClou
 from gaussiansplattingregistration_tpu_torch.models.registration_data import RegistrationResult
 from gaussiansplattingregistration_tpu_torch.ops import knn as knn_ops
 from gaussiansplattingregistration_tpu_torch.ops import math3d, se3
+from gaussiansplattingregistration_tpu_torch.utils import profiling
 from gaussiansplattingregistration_tpu_torch.utils.device import as_tensor
 
 LAMBDA_GEOMETRIC = 0.968  # Open3D colored-ICP default
@@ -198,94 +199,98 @@ def icp(
     27-cell candidate table, exact under the correspondence gate; "auto"
     = `correspondence_plan`'s choice. `shape_bucket` is accepted for the
     JAX signature and changes nothing (see the module docstring)."""
-    del shape_bucket
-    dev, dt = target.points.device, target.points.dtype
-    T = as_tensor(np.eye(4) if init_transform is None else init_transform, dev)
-    grid = correspondence_plan(source, target, params.max_correspondence, correspondence)
+    with profiling.span("icp.run"):
+        del shape_bucket
+        dev, dt = target.points.device, target.points.dtype
+        T = as_tensor(np.eye(4) if init_transform is None else init_transform, dev)
+        grid = correspondence_plan(source, target, params.max_correspondence, correspondence)
 
-    rt = params.registration_type
-    tgt_normals = target.normals
-    if rt is not LocalRegistrationType.ICP_POINT_TO_POINT and tgt_normals is None:
-        from gaussiansplattingregistration_tpu_torch.ops import normals as normals_ops
+        rt = params.registration_type
+        tgt_normals = target.normals
+        if rt is not LocalRegistrationType.ICP_POINT_TO_POINT and tgt_normals is None:
+            from gaussiansplattingregistration_tpu_torch.ops import normals as normals_ops
 
-        tgt_normals = normals_ops.estimate_normals(target.points)
-    src_colors, tgt_colors = source.colors, target.colors
-    tgt_grads = src_int = tgt_int = None
-    if rt is LocalRegistrationType.ICP_COLOR:
-        if tgt_colors is None or src_colors is None:
-            raise ValueError("colored ICP requires colors on both clouds")
-        src_int, tgt_int = _intensity(src_colors), _intensity(tgt_colors)
-        tgt_grads = compute_color_gradients(target.points, tgt_normals, tgt_int)
-    src_cov = tgt_cov = None
-    if rt is LocalRegistrationType.ICP_GENERAL:
-        src_cov = gicp_regularized_covariances(source.points, source.covariances)
-        tgt_cov = gicp_regularized_covariances(target.points, target.covariances)
+            tgt_normals = normals_ops.estimate_normals(target.points)
+        src_colors, tgt_colors = source.colors, target.colors
+        tgt_grads = src_int = tgt_int = None
+        if rt is LocalRegistrationType.ICP_COLOR:
+            if tgt_colors is None or src_colors is None:
+                raise ValueError("colored ICP requires colors on both clouds")
+            src_int, tgt_int = _intensity(src_colors), _intensity(tgt_colors)
+            tgt_grads = compute_color_gradients(target.points, tgt_normals, tgt_int)
+        src_cov = tgt_cov = None
+        if rt is LocalRegistrationType.ICP_GENERAL:
+            src_cov = gicp_regularized_covariances(source.points, source.covariances)
+            tgt_cov = gicp_regularized_covariances(target.points, target.covariances)
 
-    src_points, tgt_points = source.points, target.points
-    max_d2 = torch.tensor(params.max_correspondence, dtype=dt, device=dev) ** 2
-    n_src = torch.tensor(float(source.num_points), dtype=dt, device=dev)
-    if grid is not None:
-        g_origin, g_inv, (gnx, gny, gnz), g_occ = grid
-        table = knn_ops.build_grid_table(
-            tgt_points, torch.ones(target.num_points, dtype=torch.bool, device=dev),
-            g_origin, g_inv, gnx, gny, gnz, g_occ)
-
-    def correspondences(T):
-        p = src_points @ T[:3, :3].T + T[:3, 3]
+        src_points, tgt_points = source.points, target.points
+        max_d2 = torch.tensor(params.max_correspondence, dtype=dt, device=dev) ** 2
+        n_src = torch.tensor(float(source.num_points), dtype=dt, device=dev)
         if grid is not None:
-            d2, idx = knn_ops.grid_nearest_neighbor(
-                p, table, g_origin, g_inv, gnx, gny, gnz, 27 * g_occ)
-        else:
-            d2, idx = knn_ops.nearest_neighbor(p, tgt_points)
-        mask = d2 <= max_d2
-        matched = torch.sum(mask)
-        fitness = matched.to(dt) / n_src
-        rmse = torch.sqrt(torch.sum(torch.where(mask, d2, 0.0))
-                          / torch.clamp_min(matched, 1).to(dt))
-        return p, idx, mask, fitness, rmse
+            g_origin, g_inv, (gnx, gny, gnz), g_occ = grid
+            table = knn_ops.build_grid_table(
+                tgt_points, torch.ones(target.num_points, dtype=torch.bool, device=dev),
+                g_origin, g_inv, gnx, gny, gnz, g_occ)
 
-    def step(T):
-        p, idx, mask, fitness, rmse = correspondences(T)
-        q = tgt_points[idx]
-        wm = mask.to(dt)
-        if rt is LocalRegistrationType.ICP_POINT_TO_POINT:
-            # Open3D never applies robust kernels to point-to-point.
-            delta = _solve_point_to_point(p, q, wm)
-        else:
-            n = tgt_normals[idx]
-            w = wm * robust_weight(params.rejection_type, torch.sum((p - q) * n, dim=-1),
-                                   float(params.k_value))
-            if rt is LocalRegistrationType.ICP_POINT_TO_PLANE:
-                delta = _solve_point_to_plane(p, q, n, w)
-            elif rt is LocalRegistrationType.ICP_COLOR:
-                delta = _solve_colored(p, q, n, src_int, tgt_int[idx], tgt_grads[idx], w)
-            elif rt is LocalRegistrationType.ICP_GENERAL:
-                R = T[:3, :3]
-                cov_p = torch.einsum("ij,njk,lk->nil", R, src_cov, R)
-                delta = _solve_generalized(p, q, cov_p, tgt_cov[idx], w)
+        def correspondences(T):
+            p = src_points @ T[:3, :3].T + T[:3, 3]
+            if grid is not None:
+                d2, idx = knn_ops.grid_nearest_neighbor(
+                    p, table, g_origin, g_inv, gnx, gny, gnz, 27 * g_occ)
             else:
-                raise ValueError(rt)
-        return delta @ T, fitness, rmse
+                d2, idx = knn_ops.nearest_neighbor(p, tgt_points)
+            mask = d2 <= max_d2
+            matched = torch.sum(mask)
+            fitness = matched.to(dt) / n_src
+            rmse = torch.sqrt(torch.sum(torch.where(mask, d2, 0.0))
+                              / torch.clamp_min(matched, 1).to(dt))
+            return p, idx, mask, fitness, rmse
 
-    rel_f = torch.tensor(params.relative_fitness, dtype=dt, device=dev)
-    rel_r = torch.tensor(params.relative_rmse, dtype=dt, device=dev)
-    # |Δ| < threshold can only hold for a positive threshold.
-    can_converge = params.relative_fitness > 0 and params.relative_rmse > 0
-    prev_f = prev_r = None
-    iters, converged = 0, False
-    while iters < params.max_iteration and not converged:
-        T, f_new, r_new = step(T)
-        if can_converge and iters > 0:
-            converged = bool((torch.abs(f_new - prev_f) < rel_f)
-                             & (torch.abs(r_new - prev_r) < rel_r))
-        prev_f, prev_r = f_new, r_new
-        iters += 1
-    # Final metrics at the returned pose (Open3D reports post-update values).
-    _, _, _, fitness, rmse = correspondences(T)
-    return RegistrationResult(
-        transformation=T.detach().cpu().numpy().astype(np.float64),
-        fitness=float(fitness),
-        inlier_rmse=float(rmse),
-        num_iterations=iters,
-        converged=converged,
-    )
+        def step(T):
+            p, idx, mask, fitness, rmse = correspondences(T)
+            q = tgt_points[idx]
+            wm = mask.to(dt)
+            if rt is LocalRegistrationType.ICP_POINT_TO_POINT:
+                # Open3D never applies robust kernels to point-to-point.
+                delta = _solve_point_to_point(p, q, wm)
+            else:
+                n = tgt_normals[idx]
+                w = wm * robust_weight(params.rejection_type, torch.sum((p - q) * n, dim=-1),
+                                       float(params.k_value))
+                if rt is LocalRegistrationType.ICP_POINT_TO_PLANE:
+                    delta = _solve_point_to_plane(p, q, n, w)
+                elif rt is LocalRegistrationType.ICP_COLOR:
+                    delta = _solve_colored(p, q, n, src_int, tgt_int[idx], tgt_grads[idx], w)
+                elif rt is LocalRegistrationType.ICP_GENERAL:
+                    R = T[:3, :3]
+                    cov_p = torch.einsum("ij,njk,lk->nil", R, src_cov, R)
+                    delta = _solve_generalized(p, q, cov_p, tgt_cov[idx], w)
+                else:
+                    raise ValueError(rt)
+            return delta @ T, fitness, rmse
+
+        rel_f = torch.tensor(params.relative_fitness, dtype=dt, device=dev)
+        rel_r = torch.tensor(params.relative_rmse, dtype=dt, device=dev)
+        # |Δ| < threshold can only hold for a positive threshold.
+        can_converge = params.relative_fitness > 0 and params.relative_rmse > 0
+        prev_f = prev_r = None
+        iters, converged = 0, False
+        while iters < params.max_iteration and not converged:
+            with profiling.span("icp.iteration"):
+                T, f_new, r_new = step(T)
+                if can_converge and iters > 0:
+                    with profiling.span("icp.converge"):
+                        converged = bool((torch.abs(f_new - prev_f) < rel_f)
+                                         & (torch.abs(r_new - prev_r) < rel_r))
+            prev_f, prev_r = f_new, r_new
+            iters += 1
+        profiling.count("icp.iterations", iters)
+        # Final metrics at the returned pose (Open3D reports post-update values).
+        _, _, _, fitness, rmse = correspondences(T)
+        return RegistrationResult(
+            transformation=T.detach().cpu().numpy().astype(np.float64),
+            fitness=float(fitness),
+            inlier_rmse=float(rmse),
+            num_iterations=iters,
+            converged=converged,
+        )

@@ -26,6 +26,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gaussiansplattingregistration_tpu_torch.utils import profiling
+
 BLOCK_BYTES = 256 << 20
 _GRID_PAD_COORD = 1.0e9   # empty-slot coordinate: d2 ~ 1e18, never in gate
 
@@ -67,6 +69,12 @@ def knn(
     order of exactly tied distances is torch.topk's and may differ from
     JAX's."""
     del approx
+    with profiling.span("knn.knn"):
+        profiling.count("knn.pairs", query.shape[0] * data.shape[0])
+        return _knn(query, data, k, block_size)
+
+
+def _knn(query, data, k, block_size):
     rows = _rows_per_block(data.shape[0], block_size)
     d2s, idxs = [], []
     for q0 in range(0, query.shape[0], rows):
@@ -89,8 +97,10 @@ def hybrid_search(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """KDTreeSearchParamHybrid analogue: k nearest within `radius`.
     Returns (sq_distances [Q, k], indices [Q, k], valid_mask [Q, k])."""
-    d2, idx = knn(query, data, k=k, block_size=block_size)
-    return d2, idx, d2 <= radius * radius
+    with profiling.span("knn.hybrid"):
+        profiling.count("knn.pairs", query.shape[0] * data.shape[0])
+        d2, idx = _knn(query, data, k, block_size)
+        return d2, idx, d2 <= radius * radius
 
 
 def nearest_neighbor(
@@ -98,15 +108,18 @@ def nearest_neighbor(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Single nearest neighbor: (sq_distance [Q], index [Q] int64). One
     `min` over each [B, N] tile gives both; ties keep the first index."""
-    rows = _rows_per_block(data.shape[0], block_size)
-    d2s, idxs = [], []
-    for q0 in range(0, query.shape[0], rows):
-        v, i = torch.min(_pairwise_sqdist(query[q0:q0 + rows], data), dim=1)
-        d2s.append(v)
-        idxs.append(i)
-    if not d2s:
-        return query.new_zeros((0,)), torch.zeros((0,), dtype=torch.int64, device=query.device)
-    return torch.cat(d2s), torch.cat(idxs)
+    with profiling.span("knn.nearest"):
+        profiling.count("knn.pairs", query.shape[0] * data.shape[0])
+        rows = _rows_per_block(data.shape[0], block_size)
+        d2s, idxs = [], []
+        for q0 in range(0, query.shape[0], rows):
+            v, i = torch.min(_pairwise_sqdist(query[q0:q0 + rows], data), dim=1)
+            d2s.append(v)
+            idxs.append(i)
+        if not d2s:
+            return (query.new_zeros((0,)),
+                    torch.zeros((0,), dtype=torch.int64, device=query.device))
+        return torch.cat(d2s), torch.cat(idxs)
 
 
 # --------------------------------------------------------------------------
@@ -188,40 +201,41 @@ def build_grid_table(
     fastest) of max_occ entries (x, y, z, index) in point order; empty slots
     carry far-away coords and index -1 (the JAX layout, so that a min over a
     row breaks ties as JAX's does)."""
-    dev = points.device
-    origin = torch.as_tensor(origin, dtype=points.dtype, device=dev)
-    inv_cell = float(inv_cell)
-    m = points.shape[0]
-    n_cells = nx * ny * nz
-    cid = _cell_ids(points, origin, inv_cell, nx, ny, nz)
-    cid = torch.where(valid.to(dev), cid, torch.full_like(cid, n_cells))
-    sorted_cid, order = torch.sort(cid, stable=True)
-    starts = torch.searchsorted(sorted_cid, torch.arange(n_cells + 1, device=dev))
-    rank = torch.arange(m, device=dev) - starts[sorted_cid]
-    in_slot = (rank < max_occ) & (sorted_cid < n_cells)
-    idx_cell = torch.full((n_cells * max_occ,), -1, dtype=torch.int64, device=dev)
-    idx_cell[(sorted_cid * max_occ + rank)[in_slot]] = order[in_slot]
-    idx_cell = idx_cell.reshape(n_cells, max_occ)
+    with profiling.span("knn.grid_table"):
+        dev = points.device
+        origin = torch.as_tensor(origin, dtype=points.dtype, device=dev)
+        inv_cell = float(inv_cell)
+        m = points.shape[0]
+        n_cells = nx * ny * nz
+        cid = _cell_ids(points, origin, inv_cell, nx, ny, nz)
+        cid = torch.where(valid.to(dev), cid, torch.full_like(cid, n_cells))
+        sorted_cid, order = torch.sort(cid, stable=True)
+        starts = torch.searchsorted(sorted_cid, torch.arange(n_cells + 1, device=dev))
+        rank = torch.arange(m, device=dev) - starts[sorted_cid]
+        in_slot = (rank < max_occ) & (sorted_cid < n_cells)
+        idx_cell = torch.full((n_cells * max_occ,), -1, dtype=torch.int64, device=dev)
+        idx_cell[(sorted_cid * max_occ + rank)[in_slot]] = order[in_slot]
+        idx_cell = idx_cell.reshape(n_cells, max_occ)
 
-    pad_row = torch.tensor([_GRID_PAD_COORD] * 3 + [-1.0], dtype=points.dtype, device=dev)
-    safe = idx_cell.clamp_min(0).reshape(-1)
-    pts4 = torch.cat([points[safe], safe[:, None].to(points.dtype)], dim=-1)
-    pts4 = torch.where((idx_cell < 0).reshape(-1, 1), pad_row[None, :], pts4)
-    # The extra row is the all-empty sentinel that out-of-grid neighbors take.
-    cell_rows = torch.cat([pts4.reshape(n_cells, max_occ * 4),
-                           pad_row.repeat(max_occ)[None, :]])
+        pad_row = torch.tensor([_GRID_PAD_COORD] * 3 + [-1.0], dtype=points.dtype, device=dev)
+        safe = idx_cell.clamp_min(0).reshape(-1)
+        pts4 = torch.cat([points[safe], safe[:, None].to(points.dtype)], dim=-1)
+        pts4 = torch.where((idx_cell < 0).reshape(-1, 1), pad_row[None, :], pts4)
+        # The extra row is the all-empty sentinel that out-of-grid neighbors take.
+        cell_rows = torch.cat([pts4.reshape(n_cells, max_occ * 4),
+                               pad_row.repeat(max_occ)[None, :]])
 
-    cz, cy, cx = torch.meshgrid(torch.arange(nz, device=dev), torch.arange(ny, device=dev),
-                                torch.arange(nx, device=dev), indexing="ij")
-    cz, cy, cx = cz.reshape(-1), cy.reshape(-1), cx.reshape(-1)
-    blocks = []
-    for dz in (-1, 0, 1):
-        for dy in (-1, 0, 1):
-            for dx in (-1, 0, 1):
-                z, y, x = cz + dz, cy + dy, cx + dx
-                ok = (z >= 0) & (z < nz) & (y >= 0) & (y < ny) & (x >= 0) & (x < nx)
-                blocks.append(cell_rows[torch.where(ok, (z * ny + y) * nx + x, n_cells)])
-    return torch.cat(blocks, dim=-1)
+        cz, cy, cx = torch.meshgrid(torch.arange(nz, device=dev), torch.arange(ny, device=dev),
+                                    torch.arange(nx, device=dev), indexing="ij")
+        cz, cy, cx = cz.reshape(-1), cy.reshape(-1), cx.reshape(-1)
+        blocks = []
+        for dz in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    z, y, x = cz + dz, cy + dy, cx + dx
+                    ok = (z >= 0) & (z < nz) & (y >= 0) & (y < ny) & (x >= 0) & (x < nx)
+                    blocks.append(cell_rows[torch.where(ok, (z * ny + y) * nx + x, n_cells)])
+        return torch.cat(blocks, dim=-1)
 
 
 def _grid_block(n_query: int, w: int) -> int:
@@ -253,20 +267,23 @@ def grid_nearest_neighbor(
     """Gated nearest neighbor via the 27-cell table: (sq_distance [Q],
     index [Q] int64). Exact for every neighbor within the plan's gate and
     ~1e18 when the neighborhood is empty (callers gate with d2 <= gate^2)."""
-    origin = torch.as_tensor(origin, dtype=query.dtype, device=query.device)
-    inv_cell = float(inv_cell)
-    block = _grid_block(query.shape[0], w)
-    d2s, idxs = [], []
-    for q0 in range(0, query.shape[0], block):
-        cand, d2 = _grid_candidates(query[q0:q0 + block], table, origin, inv_cell,
-                                    nx, ny, nz, w)
-        dmin, j = torch.min(d2, dim=1)
-        idx = torch.gather(cand[:, :, 3], 1, j[:, None])[:, 0]
-        d2s.append(dmin)
-        idxs.append(idx.clamp_min(0).to(torch.int64))
-    if not d2s:
-        return query.new_zeros((0,)), torch.zeros((0,), dtype=torch.int64, device=query.device)
-    return torch.cat(d2s), torch.cat(idxs)
+    with profiling.span("knn.grid_nearest"):
+        profiling.count("knn.pairs", query.shape[0] * w)
+        origin = torch.as_tensor(origin, dtype=query.dtype, device=query.device)
+        inv_cell = float(inv_cell)
+        block = _grid_block(query.shape[0], w)
+        d2s, idxs = [], []
+        for q0 in range(0, query.shape[0], block):
+            cand, d2 = _grid_candidates(query[q0:q0 + block], table, origin, inv_cell,
+                                        nx, ny, nz, w)
+            dmin, j = torch.min(d2, dim=1)
+            idx = torch.gather(cand[:, :, 3], 1, j[:, None])[:, 0]
+            d2s.append(dmin)
+            idxs.append(idx.clamp_min(0).to(torch.int64))
+        if not d2s:
+            return (query.new_zeros((0,)),
+                    torch.zeros((0,), dtype=torch.int64, device=query.device))
+        return torch.cat(d2s), torch.cat(idxs)
 
 
 def grid_topk(
@@ -282,20 +299,22 @@ def grid_topk(
     every neighbor within the plan's cell size; slots past a window's
     population carry d2 ~ 1e18 and index 0, which callers' radius gates
     mask."""
-    origin = torch.as_tensor(origin, dtype=query.dtype, device=query.device)
-    inv_cell = float(inv_cell)
-    nx, ny, nz = (int(v) for v in dims)
     w = table.shape[1] // 4
-    block = _grid_block(query.shape[0], w)
-    d2s, idxs = [], []
-    for q0 in range(0, query.shape[0], block):
-        cand, d2 = _grid_candidates(query[q0:q0 + block], table, origin, inv_cell,
-                                    nx, ny, nz, w)
-        v, j = torch.topk(d2, k, dim=1, largest=False, sorted=True)
-        idx = torch.gather(cand[:, :, 3], 1, j)
-        d2s.append(v)
-        idxs.append(idx.clamp_min(0).to(torch.int64))
-    if not d2s:
-        return (query.new_zeros((0, k)),
-                torch.zeros((0, k), dtype=torch.int64, device=query.device))
-    return torch.cat(d2s), torch.cat(idxs)
+    with profiling.span("knn.grid_topk"):
+        profiling.count("knn.pairs", query.shape[0] * w)
+        origin = torch.as_tensor(origin, dtype=query.dtype, device=query.device)
+        inv_cell = float(inv_cell)
+        nx, ny, nz = (int(v) for v in dims)
+        block = _grid_block(query.shape[0], w)
+        d2s, idxs = [], []
+        for q0 in range(0, query.shape[0], block):
+            cand, d2 = _grid_candidates(query[q0:q0 + block], table, origin, inv_cell,
+                                        nx, ny, nz, w)
+            v, j = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+            idx = torch.gather(cand[:, :, 3], 1, j)
+            d2s.append(v)
+            idxs.append(idx.clamp_min(0).to(torch.int64))
+        if not d2s:
+            return (query.new_zeros((0, k)),
+                    torch.zeros((0, k), dtype=torch.int64, device=query.device))
+        return torch.cat(d2s), torch.cat(idxs)

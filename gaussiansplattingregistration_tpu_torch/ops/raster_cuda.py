@@ -38,6 +38,8 @@ import functools
 
 import torch
 
+from gaussiansplattingregistration_tpu_torch.utils import profiling
+
 _CHUNK = 128          # horizon unit and twin chunk (the JAX kernel's _CHUNK)
 _NCH = 10             # packed param channels (mx,my,conic*3,op,rgb,depth)
 
@@ -387,23 +389,26 @@ def composite_tiles_bwd(gT, counts, g_rgb, g_alpha, g_depth, ts: int, config, fw
 class _CompositeTiles(torch.autograd.Function):
     @staticmethod
     def forward(ctx, gT, counts, ts, config):
-        if gT.device.type == "cpu":
-            outs = composite_tiles_reference(gT, counts, ts, config)
-        else:
-            outs = _launch(gT, counts, ts, config)
+        with profiling.span("raster.composite"):
+            if gT.device.type == "cpu":
+                outs = composite_tiles_reference(gT, counts, ts, config)
+            else:
+                outs = _launch(gT, counts, ts, config)
         ctx.mark_non_differentiable(outs[3])
         # Residuals: (gT, counts), as the JAX `_fwd_rule`'s, and the outputs,
         # from which the backward kernel reads each pixel's total and each
         # tile's horizon instead of recomputing them.
         ctx.save_for_backward(gT, counts, *outs)
         ctx.ts, ctx.config = ts, config
+        ctx.request = profiling.request_id()
         return outs
 
     @staticmethod
     def backward(ctx, g_rgb, g_alpha, g_depth, _g_live):
-        gT, counts, *outs = ctx.saved_tensors
-        d_gT = composite_tiles_bwd(gT, counts, g_rgb, g_alpha, g_depth, ctx.ts, ctx.config,
-                                   fwd_out=outs)
+        with profiling.span("raster.composite_vjp", request=ctx.request):
+            gT, counts, *outs = ctx.saved_tensors
+            d_gT = composite_tiles_bwd(gT, counts, g_rgb, g_alpha, g_depth, ctx.ts, ctx.config,
+                                       fwd_out=outs)
         return d_gT, None, None, None
 
 

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from gaussiansplattingregistration_tpu_torch.ops import math3d, raster_cuda, sh as sh_ops
+from gaussiansplattingregistration_tpu_torch.utils import profiling
 from gaussiansplattingregistration_tpu_torch.utils.device import as_tensor, resolve_device
 
 _BACKENDS = ("cuda", "torch")
@@ -335,20 +336,22 @@ class _GatherEntries(torch.autograd.Function):
         g = packed[splat] * filled.to(packed.dtype)[..., None]
         ctx.save_for_backward(table)
         ctx.C, ctx.k_bwd, ctx.sort_bf16, ctx.n = C, k_bwd, sort_bf16, packed.shape[0]
+        ctx.request = profiling.request_id()
         # A fresh tensor, so the caller may shift the tile origins in place.
         return g.permute(0, 2, 1).contiguous()
 
     @staticmethod
     def backward(ctx, ct):
-        (table,) = ctx.saved_tensors
-        eid = table[:, :ctx.k_bwd]                                   # [T, KB]
-        rows = ct[:, :, :ctx.k_bwd].permute(0, 2, 1)                 # [T, KB, F]
-        if ctx.sort_bf16:
-            rows = rows.to(torch.bfloat16).to(ct.dtype)
-        filled = eid >= 0
-        d_packed = torch.zeros((ctx.n, ct.shape[1]), dtype=ct.dtype, device=ct.device)
-        d_packed.index_add_(0, torch.div(eid[filled], ctx.C, rounding_mode="floor").long(),
-                            rows[filled])
+        with profiling.span("raster.gather_vjp", request=ctx.request):
+            (table,) = ctx.saved_tensors
+            eid = table[:, :ctx.k_bwd]                                   # [T, KB]
+            rows = ct[:, :, :ctx.k_bwd].permute(0, 2, 1)                 # [T, KB, F]
+            if ctx.sort_bf16:
+                rows = rows.to(torch.bfloat16).to(ct.dtype)
+            filled = eid >= 0
+            d_packed = torch.zeros((ctx.n, ct.shape[1]), dtype=ct.dtype, device=ct.device)
+            d_packed.index_add_(0, torch.div(eid[filled], ctx.C, rounding_mode="floor").long(),
+                                rows[filled])
         return d_packed, None, None, None, None
 
 
@@ -454,62 +457,82 @@ def rasterize_tile_slab(
     num_tiles = tiles_x * tiles_y_window
     dev = means2d.device
 
-    op = opacity * valid.to(opacity.dtype)
-    table, _, _, counts, order, build_stats = _build_tile_table(
-        means2d, radius, depth, valid, tiles_x, tiles_y, config,
-        ty_offset=ty_offset, tiles_y_window=tiles_y_window,
-        with_stats=with_stats,
-    )                                                         # [T, K]
+    def tiles_to_image(tiles, ch):
+        img = tiles.reshape(tiles_y_window, tiles_x, ts, ts, ch)
+        return img.permute(0, 2, 1, 3, 4).reshape(
+            tiles_y_window * ts, tiles_x * ts, ch
+        )
 
-    tile_ids = torch.arange(num_tiles, device=dev)
-    tile_origin = torch.stack(
-        [(tile_ids % tiles_x) * ts, (tile_ids // tiles_x + ty_offset) * ts],
-        dim=-1,
-    ).to(means2d.dtype)
-    if order is not None:
-        tile_origin = tile_origin[order.long()]
+    with profiling.span("raster.bin"):
+        table, _, _, counts, order, build_stats = _build_tile_table(
+            means2d, radius, depth, valid, tiles_x, tiles_y, config,
+            ty_offset=ty_offset, tiles_y_window=tiles_y_window,
+            with_stats=with_stats,
+        )                                                     # [T, K]
 
-    packed = torch.cat(
-        [means2d, conic, op[:, None], colors, depth[:, None]], dim=-1
-    )                                                         # [N, 10]
     C = config.max_tiles_per_splat
     KB = bwd_rank_cap(config)
+    with profiling.span("raster.gather"):
+        op = opacity * valid.to(opacity.dtype)
+        tile_ids = torch.arange(num_tiles, device=dev)
+        tile_origin = torch.stack(
+            [(tile_ids % tiles_x) * ts, (tile_ids // tiles_x + ty_offset) * ts],
+            dim=-1,
+        ).to(means2d.dtype)
+        if order is not None:
+            tile_origin = tile_origin[order.long()]
+
+        packed = torch.cat(
+            [means2d, conic, op[:, None], colors, depth[:, None]], dim=-1
+        )                                                     # [N, 10]
+        if config.backend == "cuda":
+            # Occupancy-ordered rows put empty tiles last: rows past the cap
+            # are not gathered or composited and stay background.
+            T_live = _row_cap(config, num_tiles)
+            gT = gather_entries(packed, table[:T_live], C, KB,
+                                config.bwd_sort_bf16)         # [T_live, 10, K]
+            # Tile-LOCAL means keep the quadratic form exact in f32 (in
+            # place: the gather returns a fresh tensor).
+            gT[:, 0:2, :] -= tile_origin[:T_live, :, None]
+            live_counts = counts[:T_live, None].to(means2d.dtype)
+        else:
+            g = gather_entries(packed, table, C, KB,
+                               config.bwd_sort_bf16).permute(0, 2, 1)  # [T, K, 10]
+            filled = table >= 0
+
     if config.backend == "cuda":
-        # Occupancy-ordered rows put empty tiles last: rows past the cap
-        # are not gathered or composited and stay background.
-        T_live = _row_cap(config, num_tiles)
-        gT = gather_entries(packed, table[:T_live], C, KB,
-                            config.bwd_sort_bf16)             # [T_live, 10, K]
-        # Tile-LOCAL means keep the quadratic form exact in f32 (in place:
-        # the gather returns a fresh tensor).
-        gT[:, 0:2, :] -= tile_origin[:T_live, :, None]
-        rgb, alpha, depthmap, live = raster_cuda.composite_tiles(
-            gT, counts[:T_live, None].to(means2d.dtype), ts, config
-        )
-        padr = num_tiles - T_live
-        rgb = F.pad(rgb, (0, 0, 0, 0, 0, padr))
-        alpha = F.pad(alpha, (0, 0, 0, padr))
-        depthmap = F.pad(depthmap, (0, 0, 0, padr))
-        live = F.pad(live, (0, padr))
-        # Restore image (tile-id) order.
-        inv_order = torch.argsort(order.long())
-        rgb, alpha, depthmap = rgb[inv_order], alpha[inv_order], depthmap[inv_order]
+        rgb, alpha, depthmap, live = raster_cuda.composite_tiles(gT, live_counts, ts, config)
     else:
-        g = gather_entries(packed, table, C, KB,
-                           config.bwd_sort_bf16).permute(0, 2, 1)  # [T, K, 10]
-        filled = table >= 0
-        B = config.tile_chunk
-        # Under autograd each chunk is recomputed in the backward instead of
-        # keeping its [B, K, P] intermediates (the JAX jax.checkpoint).
-        composite = _composite_chunk
-        if g.requires_grad:
-            composite = functools.partial(checkpoint, _composite_chunk, use_reentrant=False)
-        parts = [
-            composite(tile_origin[s:s + B], g[s:s + B], filled[s:s + B], config)
-            for s in range(0, num_tiles, B)
-        ]
-        rgb, alpha, depthmap = (torch.cat(p) for p in zip(*parts))
+        with profiling.span("raster.composite"):
+            B = config.tile_chunk
+            # Under autograd each chunk is recomputed in the backward
+            # instead of keeping its [B, K, P] intermediates (the JAX
+            # jax.checkpoint).
+            composite = _composite_chunk
+            if g.requires_grad:
+                composite = functools.partial(checkpoint, _composite_chunk, use_reentrant=False)
+            parts = [
+                composite(tile_origin[s:s + B], g[s:s + B], filled[s:s + B], config)
+                for s in range(0, num_tiles, B)
+            ]
+            rgb, alpha, depthmap = (torch.cat(p) for p in zip(*parts))
         live = None   # composites every occupied slot
+
+    with profiling.span("raster.unpack"):
+        if config.backend == "cuda":
+            padr = num_tiles - T_live
+            rgb = F.pad(rgb, (0, 0, 0, 0, 0, padr))
+            alpha = F.pad(alpha, (0, 0, 0, padr))
+            depthmap = F.pad(depthmap, (0, 0, 0, padr))
+            live = F.pad(live, (0, padr))
+            # Restore image (tile-id) order.
+            inv_order = torch.argsort(order.long())
+            rgb, alpha, depthmap = rgb[inv_order], alpha[inv_order], depthmap[inv_order]
+        out = (
+            tiles_to_image(rgb, 3),
+            tiles_to_image(alpha[..., None], 1)[..., 0],
+            tiles_to_image(depthmap[..., None], 1)[..., 0],
+        )
 
     if with_stats:
         # Without a horizon output ("torch") report the conservative bound,
@@ -528,44 +551,37 @@ def rasterize_tile_slab(
                 counts[_row_cap(config, num_tiles):] > 0
             ).to(torch.int32)
 
-    def tiles_to_image(tiles, ch):
-        img = tiles.reshape(tiles_y_window, tiles_x, ts, ts, ch)
-        return img.permute(0, 2, 1, 3, 4).reshape(
-            tiles_y_window * ts, tiles_x * ts, ch
-        )
-
-    out = (
-        tiles_to_image(rgb, 3),
-        tiles_to_image(alpha[..., None], 1)[..., 0],
-        tiles_to_image(depthmap[..., None], 1)[..., 0],
-    )
     return out + (stats,) if with_stats else out
 
 
 def _rasterize(means, cov3d, opacity, features, viewmat, intrinsics, width,
                height, sh_degree, background, config, device, with_stats):
-    dev = resolve_device(device)
-    means, cov3d, opacity, features, viewmat, intrinsics, background = (
-        as_tensor(a, dev) for a in
-        (means, cov3d, opacity, features, viewmat, intrinsics, background))
-    ts = config.tile_size
-    tiles_x = -(-width // ts)
-    tiles_y = -(-height // ts)
+    with profiling.span("raster.frame"):
+        dev = resolve_device(device)
+        means, cov3d, opacity, features, viewmat, intrinsics, background = (
+            as_tensor(a, dev) for a in
+            (means, cov3d, opacity, features, viewmat, intrinsics, background))
+        ts = config.tile_size
+        tiles_x = -(-width // ts)
+        tiles_y = -(-height // ts)
 
-    proj = project_gaussians(means, cov3d, viewmat, intrinsics, width, height, config)
-    cam_center = -(viewmat[:3, :3].T @ viewmat[:3, 3])
-    colors = compute_view_colors(features, means, cam_center, sh_degree)
+        with profiling.span("raster.project"):
+            proj = project_gaussians(means, cov3d, viewmat, intrinsics, width, height, config)
+        with profiling.span("raster.sh"):
+            cam_center = -(viewmat[:3, :3].T @ viewmat[:3, 3])
+            colors = compute_view_colors(features, means, cam_center, sh_degree)
 
-    out = rasterize_tile_slab(
-        proj["means2d"], proj["conic"], proj["depth"], proj["radius"],
-        proj["valid"], colors, opacity, tiles_x, tiles_y, config,
-        with_stats=with_stats,
-    )
-    img_rgb = out[0][:height, :width]
-    img_alpha = out[1][:height, :width]
-    img_depth = out[2][:height, :width]
-    img_rgb = img_rgb + (1.0 - img_alpha[..., None]) * background[None, None, :]
-    return (img_rgb, img_alpha, img_depth) + tuple(out[3:])
+        out = rasterize_tile_slab(
+            proj["means2d"], proj["conic"], proj["depth"], proj["radius"],
+            proj["valid"], colors, opacity, tiles_x, tiles_y, config,
+            with_stats=with_stats,
+        )
+        with profiling.span("raster.unpack"):
+            img_rgb = out[0][:height, :width]
+            img_alpha = out[1][:height, :width]
+            img_depth = out[2][:height, :width]
+            img_rgb = img_rgb + (1.0 - img_alpha[..., None]) * background[None, None, :]
+        return (img_rgb, img_alpha, img_depth) + tuple(out[3:])
 
 
 def rasterize_arrays(

@@ -29,6 +29,7 @@ from gaussiansplattingregistration_tpu_torch.models.registration_data import Reg
 from gaussiansplattingregistration_tpu_torch.ops import icp as icp_ops
 from gaussiansplattingregistration_tpu_torch.ops import normals as normals_ops
 from gaussiansplattingregistration_tpu_torch.ops.voxel import voxel_downsample
+from gaussiansplattingregistration_tpu_torch.utils import profiling
 
 
 def _validate(params: MultiScaleRegistrationParams) -> None:
@@ -65,31 +66,33 @@ def multiscale_voxel_registration(
 ) -> RegistrationResult:
     """Voxel-pyramid coarse-to-fine ICP; `correspondence` is forwarded to
     `ops.icp.icp` ("auto"/"brute"/"grid")."""
-    _validate(params)
-    current = np.eye(4) if init_transform is None else np.asarray(init_transform)
+    with profiling.span("multiscale.register"):
+        _validate(params)
+        current = np.eye(4) if init_transform is None else np.asarray(init_transform)
 
-    if params.use_corresponding_pc and sparse_source is not None and sparse_target is not None:
-        boot = icp_ops.icp(
-            sparse_source, sparse_target,
-            _scale_params(params, max(params.voxel_values), max(params.iter_values)),
-            init_transform=current, shape_bucket=True,
-        )
-        current = boot.transformation
+        if params.use_corresponding_pc and sparse_source is not None and sparse_target is not None:
+            boot = icp_ops.icp(
+                sparse_source, sparse_target,
+                _scale_params(params, max(params.voxel_values), max(params.iter_values)),
+                init_transform=current, shape_bucket=True,
+            )
+            current = boot.transformation
 
-    result = None
-    for radius, iters in zip(params.voxel_values, params.iter_values):
-        src_down = voxel_downsample(source, radius)
-        tgt_down = voxel_downsample(target, radius)
-        src_down = dataclasses.replace(src_down, normals=normals_ops.estimate_normals(
-            src_down.points, k=30, radius=radius * 2))
-        tgt_down = dataclasses.replace(tgt_down, normals=normals_ops.estimate_normals(
-            tgt_down.points, k=30, radius=radius * 2))
-        result = icp_ops.icp(
-            src_down, tgt_down, _scale_params(params, radius, iters),
-            init_transform=current, shape_bucket=True, correspondence=correspondence,
-        )
-        current = result.transformation
-    return dataclasses.replace(result, transformation=current)
+        result = None
+        for radius, iters in zip(params.voxel_values, params.iter_values):
+            with profiling.span("multiscale.scale"):
+                src_down = voxel_downsample(source, radius)
+                tgt_down = voxel_downsample(target, radius)
+                src_down = dataclasses.replace(src_down, normals=normals_ops.estimate_normals(
+                    src_down.points, k=30, radius=radius * 2))
+                tgt_down = dataclasses.replace(tgt_down, normals=normals_ops.estimate_normals(
+                    tgt_down.points, k=30, radius=radius * 2))
+                result = icp_ops.icp(
+                    src_down, tgt_down, _scale_params(params, radius, iters),
+                    init_transform=current, shape_bucket=True, correspondence=correspondence,
+                )
+            current = result.transformation
+        return dataclasses.replace(result, transformation=current)
 
 
 def multiscale_mixture_registration(
@@ -103,26 +106,28 @@ def multiscale_mixture_registration(
     coarsest (level 0 = the original cloud); the loop walks them
     coarsest-first, `levels[-(i+1)]`, with per-level correspondence
     distances (voxel_values) and iteration counts."""
-    _validate(params)
-    n_scales = len(params.voxel_values)
-    if len(source_levels) < n_scales or len(target_levels) < n_scales:
-        raise ValueError(
-            f"need at least {n_scales} mixture levels, got "
-            f"{len(source_levels)}/{len(target_levels)}"
-        )
-    current = np.eye(4) if init_transform is None else np.asarray(init_transform)
+    with profiling.span("multiscale.register"):
+        _validate(params)
+        n_scales = len(params.voxel_values)
+        if len(source_levels) < n_scales or len(target_levels) < n_scales:
+            raise ValueError(
+                f"need at least {n_scales} mixture levels, got "
+                f"{len(source_levels)}/{len(target_levels)}"
+            )
+        current = np.eye(4) if init_transform is None else np.asarray(init_transform)
 
-    result = None
-    for i, (corr, iters) in enumerate(zip(params.voxel_values, params.iter_values)):
-        src = source_levels[-(i + 1)]
-        tgt = target_levels[-(i + 1)]
-        if src.normals is None:
-            src = normals_ops.with_estimated_normals(src)
-        if tgt.normals is None:
-            tgt = normals_ops.with_estimated_normals(tgt)
-        result = icp_ops.icp(
-            src, tgt, _scale_params(params, corr, iters),
-            init_transform=current, shape_bucket=True, correspondence=correspondence,
-        )
-        current = result.transformation
-    return dataclasses.replace(result, transformation=current)
+        result = None
+        for i, (corr, iters) in enumerate(zip(params.voxel_values, params.iter_values)):
+            with profiling.span("multiscale.scale"):
+                src = source_levels[-(i + 1)]
+                tgt = target_levels[-(i + 1)]
+                if src.normals is None:
+                    src = normals_ops.with_estimated_normals(src)
+                if tgt.normals is None:
+                    tgt = normals_ops.with_estimated_normals(tgt)
+                result = icp_ops.icp(
+                    src, tgt, _scale_params(params, corr, iters),
+                    init_transform=current, shape_bucket=True, correspondence=correspondence,
+                )
+            current = result.transformation
+        return dataclasses.replace(result, transformation=current)

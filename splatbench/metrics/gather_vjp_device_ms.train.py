@@ -1,0 +1,11 @@
+"""Device milliseconds a training frame spends landing the per-entry
+cotangents on their splats: the program's `raster.gather_vjp` span
+(`_GatherEntries.backward` in `ops/rasterize.py`, one `index_add_`), its
+device interval a traced frame, idle inside it included
+(`splatbench/program_spans.py`)."""
+
+from splatbench.program_spans import device_per_step
+
+
+def read(rec):
+    return device_per_step(rec, "raster.gather_vjp", scale=1e3)

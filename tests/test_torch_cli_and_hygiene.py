@@ -200,7 +200,6 @@ def _port_sources():
         yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "bench_torch.py")
-    yield os.path.join(REPO, "scripts", "torch_profile_frame.py")
     yield os.path.join(REPO, "scripts", "torch_dryrun_multigpu.py")
     yield os.path.join(REPO, "tests", "torch_dist_workers.py")
 
