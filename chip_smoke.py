@@ -10,7 +10,9 @@ scene's full width (1M splats at 1280x720): the forward render, the
 gradients of the whole rasterizer against the plain-torch backend,
 fwd+bwd timing, and photometric pose refinement; then the `render` and
 `photometric` CLI. Then the registration path at bench.py's sizes (plain
-torch on the card): neighbor search at 100k points against the CPU, ICP
+torch on the card, but the brute neighbor search, which runs
+csrc/knn_brute.cu): neighbor search at 100k points against the CPU and the
+kNN kernel against its plain form at the registration cell's shapes, ICP
 (config 1, brute and grid), HEM (config 3, 200k splats) and the mixture
 multiscale registration on its levels, and tests/test_e2e_cli.py's flow
 through the port's CLI, whose evaluation is driven once more in this
@@ -38,7 +40,9 @@ package beside it. Any failing phase raises.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -523,29 +527,175 @@ def check_bwd(got, want, where: str) -> dict:
 
 
 def sqdist_rows(query, data, idx):
-    """[Q, k] squared distances of query i to data[idx[i, j]] on the CPU,
-    summed as the brute form sums them."""
-    q, d = query.cpu(), data.cpu()
-    nb = d[idx.cpu().reshape(-1)].reshape(*idx.shape, 3)
+    """[Q, k] squared distances of query i to data[idx[i, j]] on their
+    device, summed as the brute form sums them."""
+    nb = data[idx.reshape(-1)].reshape(*idx.shape, data.shape[1])
     acc = None
-    for c in range(3):
-        term = torch.sub(nb[..., c], q[:, None, c]).square_()
+    for c in range(data.shape[1]):
+        term = torch.sub(query[:, None, c], nb[..., c]).square_()
         acc = term if acc is None else acc.add_(term)
     return acc
 
 
 def non_tie_mismatches(query, data, idx_a, idx_b) -> int:
     """Index mismatches whose two neighbors are not at the same distance."""
-    idx_a, idx_b = idx_a.cpu().reshape(len(query), -1), idx_b.cpu().reshape(len(query), -1)
-    d_a, d_b = sqdist_rows(query, data, idx_a), sqdist_rows(query, data, idx_b)
+    q, d = query.cpu(), data.cpu()
+    idx_a, idx_b = idx_a.cpu().reshape(len(q), -1), idx_b.cpu().reshape(len(q), -1)
+    d_a, d_b = sqdist_rows(q, d, idx_a), sqdist_rows(q, d, idx_b)
     return int(((idx_a != idx_b) & (d_a != d_b)).sum())
+
+
+# FP32 lane-instructions a second of one H100 SXM (67 TFLOP/s counts an FMA
+# as two) and the instructions a (query, data) pair of the brute kNN sweep
+# needs at least: 3 sub, 3 mul, 2 add, a compare and a select.
+PEAK_FP32_INSTR = PEAK_FP32_FLOPS / 2
+INSTR_PER_KNN_PAIR = 10
+
+
+@contextlib.contextmanager
+def brute_launches(rec: dict, extra: int = 0):
+    """Counts the kNN kernel's launches over a block of registration-path
+    work on the card (`knn_brute.launches` set to 0 before it, read after
+    it) against the searches the block makes, with the program's spans
+    on: one a HEM level's candidates (`hem.candidates`), one a normals pass
+    (`normals.estimate`), one an ICP update and one more a run for its
+    final metrics (`icp.iterations`, `icp.run`), and `extra` (other direct
+    searches), less those that took the grid (`knn.grid_*`). Every brute
+    search has to launch the kernel once: the launches equal both that
+    count and the brute searches the public functions counted
+    (`knn.knn`, `knn.hybrid`, `knn.nearest`), and are above 0. The block
+    runs on the card only (a CPU search would count as a search and launch
+    nothing). Fills `rec` with the counts."""
+    from gaussiansplattingregistration_tpu_torch.ops import knn
+    from gaussiansplattingregistration_tpu_torch.utils import profiling
+
+    knn.knn_brute.launches = 0
+    profiling.reset()
+    with profiling.recording():
+        yield rec
+    torch.cuda.synchronize()
+    snap = profiling.snapshot()
+    profiling.reset()
+
+    def n(name):
+        return snap["spans"].get(name, {}).get("count", 0)
+
+    rec.update({"launches": knn.knn_brute.launches,
+                "hem_levels": n("hem.candidates"), "normals": n("normals.estimate"),
+                "icp_updates": int(snap["counters"].get("icp.iterations", 0)),
+                "icp_runs": n("icp.run"), "extra": extra,
+                "grid_searches": n("knn.grid_nearest") + n("knn.grid_topk"),
+                "brute_searches": n("knn.knn") + n("knn.hybrid") + n("knn.nearest")})
+    rec["expected"] = (rec["hem_levels"] + rec["normals"] + rec["icp_updates"] + rec["icp_runs"]
+                       + extra - rec["grid_searches"])
+    if not 0 < rec["launches"] == rec["expected"] == rec["brute_searches"]:
+        raise AssertionError(f"knn_brute launches on the registration path: {rec}")
+
+
+def knn_kernel_cases(dev) -> list:
+    """(name, query, data, k, timed) of the kNN kernel's checks on the card:
+    `reg200k_hem`'s shapes (HEM's level-0 search, 66.5k x 200k at k = 32;
+    the first level's normals and ICP, 68k x 68k at k = 30 and 1; the last
+    level's ICP, 8.7k x 8.7k at k = 1, which splits the data), k = 20 and
+    100, and the edges: N not a multiple of the staged chunk, k = N, fewer
+    queries than a warp, HEM's dead rows at 1e12 (exact ties), duplicated
+    points (exact ties at every rank) and D = 4. Points are uniform in a
+    4 x 3 x 2.5 room, in random order, as the cell's splats are."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    room = torch.tensor([4.0, 3.0, 2.5], device=dev)
+
+    def pts(n, dim=3):
+        return torch.rand((n, dim), generator=g, device=dev) * (room if dim == 3 else 1.0)
+
+    def some(x, n):
+        return x[torch.randperm(x.shape[0], generator=g, device=dev)[:n]].contiguous()
+
+    lvl0, lvl1, lvl1_moved, lvl3 = pts(200_000), pts(68_000), pts(68_000), pts(8_700)
+    far = pts(5000)
+    far[torch.rand(5000, generator=g, device=dev) > 0.004] = 1e12    # ~20 alive rows
+    dup = pts(3000)
+    dup = torch.cat([dup, dup[:1500]])
+    mid = pts(20_000)
+    return [
+        ("hem_level0_k32", some(lvl0, 66_500), lvl0, 32, True),
+        ("normals_level1_k30", lvl1, lvl1, 30, True),
+        ("icp_level1_k1", lvl1_moved, lvl1, 1, True),
+        ("icp_level3_k1", pts(8_700), lvl3, 1, True),
+        ("k20", mid, mid, 20, False),
+        ("k100", some(mid, 5000), mid, 100, False),
+        ("n_not_chunk_multiple", pts(1000), pts(3 * 512 + 17), 32, False),
+        ("k_equals_n", pts(50), pts(100), 100, False),
+        ("q_below_warp_k30", pts(7), pts(5000), 30, False),
+        ("q_below_warp_k1", pts(7), pts(5000), 1, False),
+        ("dead_rows_1e12_k32", some(pts(5000), 300), far, 32, False),
+        ("dead_rows_1e12_k1", pts(300), far, 1, False),
+        ("duplicates_k32", some(dup, 1000), dup, 32, False),
+        ("duplicates_k1", some(dup, 1000), dup, 1, False),
+        ("d4_k20", pts(3000, 4), pts(4000, 4), 20, False),
+    ]
+
+
+def knn_kernel_check(dev) -> list:
+    """`knn_brute` (csrc/knn_brute.cu) against the plain form on the card,
+    through the public functions, on `knn_kernel_cases`: distances
+    bit-equal, indices equal but at exact ties, each row ascending by
+    (d2, index), the first rows equal to a stable sort of their whole
+    distance row, and a launch counted for each call; at the cell's shapes
+    also the kernel's and the plain form's ms and the bound."""
+    from gaussiansplattingregistration_tpu_torch.ops import knn
+
+    out = []
+    for name, q, d, k, timed in knn_kernel_cases(dev):
+        before = knn.knn_brute.launches
+        if k == 1:
+            run = functools.partial(knn.nearest_neighbor, q, d)
+            plain = functools.partial(knn._nearest_blocked, q, d, None)
+        else:
+            run = functools.partial(knn.knn, q, d, k)
+            plain = functools.partial(knn._knn_blocked, q, d, k, None)
+        d2, idx = (t.reshape(q.shape[0], k) for t in run())
+        launched = knn.knn_brute.launches - before
+        pd2, pidx = (t.reshape(q.shape[0], k) for t in plain())
+        acc, pacc = sqdist_rows(q, d, idx), sqdist_rows(q, d, pidx)
+        key_d, key_i = d2[:, 1:], idx[:, 1:]
+        ordered = bool(((d2[:, :-1] < key_d) | ((d2[:, :-1] == key_d) & (idx[:, :-1] < key_i)))
+                       .all())
+        rows = min(q.shape[0], max(1, (64 << 20) // (4 * d.shape[0])), 512)
+        full = knn._pairwise_sqdist(q[:rows], d)
+        want = torch.sort(full, dim=1, stable=True).indices[:, :k]
+        rec = {"case": name, "Q": q.shape[0], "N": d.shape[0], "D": q.shape[1], "k": k,
+               "launches": launched,
+               "d2_bit_equal": bool(torch.equal(d2.view(torch.int32), pd2.view(torch.int32))),
+               "d2_max_gap": float((d2 - pd2).abs().max()),
+               "d2_matches_indices": bool(torch.equal(acc.view(torch.int32),
+                                                      d2.view(torch.int32))),
+               "non_tie_mismatches": int(((idx != pidx) & (acc != pacc)).sum()),
+               "tie_mismatches": int(((idx != pidx) & (acc == pacc)).sum()),
+               "adjacent_ties": int((d2[:, :-1] == key_d).sum()),
+               "ascending_by_d2_index": ordered,
+               "stable_sort_rows": rows,
+               "stable_sort_equal": bool(torch.equal(idx[:rows], want))}
+        if timed:
+            iters = 3 if q.shape[0] * d.shape[0] > 5e9 else 10
+            rec["kernel_ms"] = cuda_ms(run, iters)
+            rec["plain_ms"] = cuda_ms(plain, 2, warmup=1)
+            rec["bound_ms"] = 1e3 * q.shape[0] * d.shape[0] * INSTR_PER_KNN_PAIR / PEAK_FP32_INSTR
+            rec["bound_share"] = rec["bound_ms"] / rec["kernel_ms"]
+            rec["gpairs_per_s"] = q.shape[0] * d.shape[0] / rec["kernel_ms"] / 1e6
+        out.append(rec)
+        if not (launched >= 1 and rec["d2_bit_equal"] and rec["d2_matches_indices"]
+                and rec["non_tie_mismatches"] == 0 and ordered and rec["stable_sort_equal"]):
+            raise AssertionError(f"knn_brute disagrees with the plain form: {rec}")
+    return out
 
 
 def knn_phase(dev, surf_src, surf_tgt, vol) -> dict:
     """Neighbor search at 100k points on the card against the CPU: nearest
     neighbor on a 10k-query subset and knn(k=32) on 2k queries of the
     surface pair; the grid against brute within the gate (0.05) on the
-    volumetric scene. d2 within 1e-6 relative, no index mismatch but ties."""
+    volumetric scene. d2 within 1e-6 relative, no index mismatch but ties.
+    Then the kernel against the plain form on the card (`knn_kernel_check`)."""
     from gaussiansplattingregistration_tpu_torch.ops import knn
 
     rec = {}
@@ -591,6 +741,7 @@ def knn_phase(dev, surf_src, surf_tgt, vol) -> dict:
            or not rec["grid_out_of_gate_ok"])
     if bad:
         raise AssertionError(f"neighbor search on the card disagrees: {rec}")
+    rec["kernel"] = knn_kernel_check(dev)
     return rec
 
 
@@ -599,11 +750,49 @@ def icp_phase(dev, surf, vol) -> dict:
     surface clouds (gate 0.3, 30 fixed iterations; "auto" keeps brute),
     then the volumetric 100k pair at gate 0.05 ("auto" must take the grid).
     Wall per iteration after a warm-up run. Then the four variants at 10k
-    points, card against CPU, poses within 1e-4."""
+    points, card against CPU, poses within 1e-4. The card's runs count the
+    kNN kernel's launches (`brute_launches`; their times are taken with
+    the program's spans on)."""
+    from gaussiansplattingregistration_tpu_torch.ops import icp
+
+    rec = {"knn_brute": {}}
+    src, tgt, col, _ = two_clouds(np.random.default_rng(4), 10_000, colors=True)
+    variants = ("ICP_POINT_TO_POINT", "ICP_POINT_TO_PLANE", "ICP_COLOR", "ICP_GENERAL")
+    on_card = {}
+    # Colored ICP's color gradients and GICP's two covariance estimates are
+    # searches of their own.
+    with brute_launches(rec["knn_brute"], extra=3):
+        _icp_100k(dev, surf, vol, rec)
+        for variant in variants:
+            on_card[variant] = icp.icp(point_cloud(src, col, dev), point_cloud(tgt, col, dev),
+                                       _variant_params(variant))
+    gaps = {}
+    for variant in variants:
+        on = [on_card[variant], icp.icp(point_cloud(src, col, "cpu"),
+                                        point_cloud(tgt, col, "cpu"), _variant_params(variant))]
+        gaps[variant] = {"pose_max_abs_gap": float(np.abs(on[0].transformation
+                                                          - on[1].transformation).max()),
+                         "fitness_gap": on[0].fitness - on[1].fitness,
+                         "rmse_gap": on[0].inlier_rmse - on[1].inlier_rmse}
+    rec["variants_10k_card_vs_cpu"] = gaps
+    if not all(g["pose_max_abs_gap"] <= 1e-4 for g in gaps.values()):
+        raise AssertionError(f"icp variants: card and CPU poses differ: {gaps}")
+    return rec
+
+
+def _variant_params(variant: str):
+    from gaussiansplattingregistration_tpu_torch.models import parameters as P
+
+    return P.LocalRegistrationParams(
+        registration_type=P.LocalRegistrationType[variant], max_correspondence=0.3,
+        max_iteration=10, relative_fitness=0.0, relative_rmse=0.0)
+
+
+def _icp_100k(dev, surf, vol, rec) -> None:
+    """`icp_phase`'s two 100k pairs, a warm-up run and a timed one each."""
     from gaussiansplattingregistration_tpu_torch.models import parameters as P
     from gaussiansplattingregistration_tpu_torch.ops import icp
 
-    rec = {}
     for name, (src, tgt, T_src), gate, want in (("surface_100k", surf, 0.3, "brute"),
                                                 ("volumetric_100k", vol, 0.05, "grid")):
         source, target = point_cloud(src, dev=dev), point_cloud(tgt, dev=dev)
@@ -626,36 +815,58 @@ def icp_phase(dev, surf, vol) -> dict:
                 and rec[name]["pose_error"] < rec[name]["pose_error_start"]):
             raise AssertionError(f"icp {name}: {rec[name]}")
 
-    src, tgt, col, _ = two_clouds(np.random.default_rng(4), 10_000, colors=True)
-    gaps = {}
-    for variant in ("ICP_POINT_TO_POINT", "ICP_POINT_TO_PLANE", "ICP_COLOR", "ICP_GENERAL"):
-        params = P.LocalRegistrationParams(
-            registration_type=P.LocalRegistrationType[variant], max_correspondence=0.3,
-            max_iteration=10, relative_fitness=0.0, relative_rmse=0.0)
-        on = [icp.icp(point_cloud(src, col, d), point_cloud(tgt, col, d), params)
-              for d in (dev, "cpu")]
-        gaps[variant] = {"pose_max_abs_gap": float(np.abs(on[0].transformation
-                                                          - on[1].transformation).max()),
-                         "fitness_gap": on[0].fitness - on[1].fitness,
-                         "rmse_gap": on[0].inlier_rmse - on[1].inlier_rmse}
-    rec["variants_10k_card_vs_cpu"] = gaps
-    if not all(g["pose_max_abs_gap"] <= 1e-4 for g in gaps.values()):
-        raise AssertionError(f"icp variants: card and CPU poses differ: {gaps}")
-    return rec
-
 
 def hem_phase(dev):
     """bench.py config 3 on the card: 200k splats (SH degree 1, scales
     0.04-0.10), cluster_level=3, seed 0, twice (the second timed; the level
     sizes equal, each cut >= 1.8x); one level with injected parent flags at
     5k splats, card against CPU; the native backend's 200k pass, timed only.
-    Returns (record, cloud, levels)."""
+    The card's work counts the kNN kernel's launches (`brute_launches`;
+    its times are taken with the program's spans on). Returns (record,
+    cloud, levels)."""
     from gaussiansplattingregistration_tpu_torch.models.parameters import GaussianMixtureParams
-    from gaussiansplattingregistration_tpu_torch.ops import hem, knn
+    from gaussiansplattingregistration_tpu_torch.ops import hem
 
     n = HEM_SPLATS
     cloud = hem_cloud(n, dev)
     params = GaussianMixtureParams(cluster_level=3)
+    launches = {}
+    # The level-0 search timed alone is a search of its own.
+    with brute_launches(launches, extra=1):
+        rec, levels, injected = _hem_on_card(dev, cloud, params)
+    rec["knn_brute"] = launches
+
+    # One level with injected flags, card against CPU (test_native_hem's
+    # tolerances): the same alive count and rows.
+    state, out = injected
+    on_cpu = hem.MixtureState(**{f.name: getattr(state, f.name).to("cpu")
+                                 for f in dataclasses.fields(state)})
+    outs = [{f: getattr(o, f)[o.alive].cpu().numpy().astype(np.float64)
+             for f in ("mean", "weight", "cov")}
+            for o in (out, hem.hem_cluster_level(torch.Generator(device="cpu"), on_cpu,
+                                                 3.0, 3.0, 2.5, 1.0))]
+    order = [np.lexsort(np.round(o["mean"], 4).T[::-1]) for o in outs]
+    rec["injected_5k"] = {"alive": [len(o["mean"]) for o in outs]}
+    if len(outs[0]["mean"]) != len(outs[1]["mean"]):
+        raise AssertionError(f"HEM level on the card and the CPU: {rec['injected_5k']}")
+    for f, rtol, atol in (("mean", 1e-3, 1e-4), ("weight", 1e-3, 1e-4), ("cov", 5e-3, 1e-5)):
+        a, b = outs[0][f][order[0]], outs[1][f][order[1]]
+        rec["injected_5k"][f"{f}_max_abs_gap"] = float(np.abs(a - b).max())
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
+
+    t0 = time.perf_counter()
+    native_levels = hem.create_mixture(cloud, params, seed=0, backend="native")
+    rec["native_wall_s"] = time.perf_counter() - t0
+    rec["native_level_sizes"] = [lvl.xyz.shape[0] for lvl in native_levels]
+    return rec, cloud, levels
+
+
+def _hem_on_card(dev, cloud, params):
+    """`hem_phase`'s work on the card: (record, levels, (the injected
+    level's state, the level made from it))."""
+    from gaussiansplattingregistration_tpu_torch.ops import hem, knn
+
+    n = cloud.num_points
     t0 = time.perf_counter()
     first, _ = hem.create_mixture(cloud, params, seed=0, with_stats=True)
     cold = time.perf_counter() - t0
@@ -698,42 +909,23 @@ def hem_phase(dev):
     rec["level0_global_knn32_s"] = time.perf_counter() - t0
     rec["level0_parents"] = int(parents.shape[0])
 
-    # One level with injected flags, card against CPU (test_native_hem's
-    # tolerances): the same alive count and rows.
     small = random_cloud(np.random.default_rng(5), 5000, 1, (0.04, 0.10), dev)
     state = hem.init_mixture(torch.Generator(device=dev), small.xyz, small.get_colors,
                              small.get_opacity[:, 0], small.get_covariance(),
                              small.features_rest.reshape(5000, -1), 3.0)
     flags = torch.as_tensor(np.random.default_rng(7).random(5000) < 1.0 / 3.0, device=dev)
     state = dataclasses.replace(state, is_parent=flags)
-    outs = []
-    for d in (dev, "cpu"):
-        on_d = hem.MixtureState(**{f.name: getattr(state, f.name).to(d)
-                                   for f in dataclasses.fields(state)})
-        out = hem.hem_cluster_level(torch.Generator(device=d), on_d, 3.0, 3.0, 2.5, 1.0)
-        outs.append({f: getattr(out, f)[out.alive].cpu().numpy().astype(np.float64)
-                     for f in ("mean", "weight", "cov")})
-    order = [np.lexsort(np.round(o["mean"], 4).T[::-1]) for o in outs]
-    rec["injected_5k"] = {"alive": [len(o["mean"]) for o in outs]}
-    if len(outs[0]["mean"]) != len(outs[1]["mean"]):
-        raise AssertionError(f"HEM level on the card and the CPU: {rec['injected_5k']}")
-    for f, rtol, atol in (("mean", 1e-3, 1e-4), ("weight", 1e-3, 1e-4), ("cov", 5e-3, 1e-5)):
-        a, b = outs[0][f][order[0]], outs[1][f][order[1]]
-        rec["injected_5k"][f"{f}_max_abs_gap"] = float(np.abs(a - b).max())
-        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
-
-    t0 = time.perf_counter()
-    native_levels = hem.create_mixture(cloud, params, seed=0, backend="native")
-    rec["native_wall_s"] = time.perf_counter() - t0
-    rec["native_level_sizes"] = [lvl.xyz.shape[0] for lvl in native_levels]
-    return rec, cloud, levels
+    out = hem.hem_cluster_level(torch.Generator(device=dev), state, 3.0, 3.0, 2.5, 1.0)
+    return rec, levels, (state, out)
 
 
 def multiscale_phase(dev, cloud, levels) -> dict:
     """bench.py's mixture registration on the HEM levels: the level pyramid
     of the 200k cloud against its copy moved by (0.05, -0.03, 0.02);
     voxel_values [0.3, 0.15, 0.08], iter_values [30, 20, 14]. A warm-up
-    run, then the timed one; the translation recovered within 5e-3."""
+    run, then the timed one (with the program's spans on, counting the kNN
+    kernel's launches: `brute_launches`); the translation recovered within
+    5e-3."""
     from gaussiansplattingregistration_tpu_torch.models.parameters import (
         MultiScaleRegistrationParams,
     )
@@ -747,13 +939,16 @@ def multiscale_phase(dev, cloud, levels) -> dict:
     T_off[:3, 3] = (0.05, -0.03, 0.02)
     src_levels = [pc.transform(T_off) for pc in tgt_levels]
     ms = MultiScaleRegistrationParams(voxel_values=[0.3, 0.15, 0.08], iter_values=[30, 20, 14])
-    multiscale_mixture_registration(src_levels, tgt_levels, ms)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = multiscale_mixture_registration(src_levels, tgt_levels, ms)
-    wall = time.perf_counter() - t0
+    launches = {}
+    with brute_launches(launches):
+        multiscale_mixture_registration(src_levels, tgt_levels, ms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = multiscale_mixture_registration(src_levels, tgt_levels, ms)
+        wall = time.perf_counter() - t0
     err = float(np.abs(res.transformation[:3, 3] + T_off[:3, 3]).max())
     rec = {"level_points": [pc.num_points for pc in tgt_levels], "warm_s": wall,
+           "knn_brute": launches,
            "fitness": res.fitness, "rmse": res.inlier_rmse,
            "translation_max_abs_err": err,
            "rotation_max_abs_err": float(np.abs(res.transformation[:3, :3] - np.eye(3)).max())}
@@ -2271,15 +2466,17 @@ def main() -> int:
         if not err < 2e-2:
             raise AssertionError(f"cli photometric pose error {err} >= 2e-2")
 
-    # 9. The registration path (plain torch on the card, no kernel of its
-    # own): neighbor search, ICP, HEM, multiscale at bench.py's sizes, then
-    # the end-to-end CLI flow, whose evaluation runs composite_fwd.
+    # 9. The registration path (plain torch on the card, but the brute
+    # neighbor search, which runs knn_brute): neighbor search, ICP, HEM,
+    # multiscale at bench.py's sizes, then the end-to-end CLI flow, whose
+    # evaluation runs composite_fwd.
     surf_src, surf_tgt, T_surf, vol_src, vol, T_vol = icp_draws(100_000)
+    reg_recs = {}
     for phase, fn in (("knn", lambda: knn_phase(dev, surf_src, surf_tgt, (vol, vol_src))),
                       ("icp", lambda: icp_phase(dev, (surf_src, surf_tgt, T_surf),
                                                 (vol_src, vol, T_vol.astype(np.float64))))):
         t0 = time.perf_counter()
-        rec = fn()
+        rec = reg_recs[phase] = fn()
         emit({"phase": phase, "card": card, **rec, "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     hem_rec, hem_cloud, hem_levels = hem_phase(dev)
@@ -2287,6 +2484,9 @@ def main() -> int:
     t0 = time.perf_counter()
     ms_rec = multiscale_phase(dev, hem_cloud, hem_levels)
     emit({"phase": "multiscale", "card": card, **ms_rec, "seconds": time.perf_counter() - t0})
+    reg_launches = {"icp": reg_recs["icp"]["knn_brute"]["launches"],
+                    "hem": hem_rec["knn_brute"]["launches"],
+                    "multiscale": ms_rec["knn_brute"]["launches"]}
     del hem_cloud, hem_levels
     with tempfile.TemporaryDirectory() as tmp:
         emit({"phase": "cli_e2e", "card": card, **cli_e2e_phase(dev, raster_cuda, tmp)})
@@ -2341,7 +2541,10 @@ def main() -> int:
     # (the viewer's config, K = 256; no backward), the world-1 sharded
     # train steps (bench config; the inputs of their second camera) and
     # bench_torch.py's config 5 (K = 256; its 10 timed steps' launches,
-    # counted in its own process).
+    # counted in its own process); then the kNN kernel, which replaces no
+    # TPU kernel: its launches in the registration path's icp, hem and
+    # multiscale phases (`brute_launches`), beside its times at the
+    # registration cell's shapes (`knn_kernel_check`).
     src = "gaussiansplattingregistration_tpu_torch/csrc/"
     ref = "gaussiansplattingregistration_tpu/ops/raster_pallas.py:"
     fwd = {"name": "composite_fwd", "route": "cuda", "source": src + "composite_fwd.cu",
@@ -2361,6 +2564,14 @@ def main() -> int:
         {**bwd, "path": "sharded_train_step", **world1_bwd, "library_ms": None},
         {**fwd, "path": "bench_config5", **bench_fwd, "library_ms": None},
         {**bwd, "path": "bench_config5", **bench_bwd, "library_ms": None},
+        {"name": "knn_brute", "route": "cuda", "source": src + "knn_brute.cu", "replaces": None,
+         "path": "registration", "launches": sum(reg_launches.values()),
+         "launches_by_phase": reg_launches,
+         "shapes": [{"case": c["case"], "Q": c["Q"], "N": c["N"], "k": c["k"],
+                     "ms": c["kernel_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                     "bound_share": c["bound_share"]}
+                    for c in reg_recs["knn"]["kernel"] if "kernel_ms" in c],
+         "bound_by": "fp32_issue", "library_ms": None},
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

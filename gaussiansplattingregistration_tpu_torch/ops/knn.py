@@ -10,17 +10,33 @@ swamps the distance between close points (and `torch.cdist` takes that route
 in its default compute mode). For D > 4 the Gram form runs as a float32
 matmul; the package turns TF32 off at import, so it is not rounded to TF32.
 
-Queries are processed in blocks chosen so that each [B, N] float32
-temporary stays within `BLOCK_BYTES` (256 MB): at 100k x 100k an unblocked
-tile would take 40 GB. The JAX package blocks by a fixed `block_size` for
-its compiler; the torch functions keep the keyword, and take the budget's
-block when it is None.
+On a CUDA float32 query and data of D <= 4 coordinates with
+1 <= k <= min(N, `KERNEL_MAX_K`) and at least one query (every D = 3
+caller: k = 1 for ICP, 20, 30 and 32 for GICP, normals and HEM, FPFH's
+`max_nn`), `knn`, `hybrid_search` and `nearest_neighbor` launch
+`knn_brute`, the hand-written sweep of `csrc/knn_brute.cu`: the same
+distances, bit for bit, and the k nearest selected in the same pass, with
+no [Q, N] tensor in device memory. Its results come out ascending by
+(d2, index) as one key, so exact ties are ordered by index (for k = 1 the
+first index wins, as `torch.min`'s rule). Every other input takes the plain
+form below (`_knn_blocked`, `_nearest_blocked`): a CPU tensor, the Gram
+form of D > 4 (FPFH feature matching), k > `KERNEL_MAX_K`, an empty query
+or k > N (which keep the plain form's empty outputs and its error). The
+rule reads the inputs' device, dtype and shapes only.
+
+The plain form processes queries in blocks chosen so that each [B, N]
+float32 temporary stays within `BLOCK_BYTES` (256 MB): at 100k x 100k an
+unblocked tile would take 40 GB. The JAX package blocks by a fixed
+`block_size` for its compiler; the torch functions keep the keyword, and
+take the budget's block when it is None; the kernel needs no block.
 
 Every function runs on the device of its inputs.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -29,6 +45,7 @@ import torch
 from gaussiansplattingregistration_tpu_torch.utils import profiling
 
 BLOCK_BYTES = 256 << 20
+KERNEL_MAX_K = 128        # the largest k of csrc/knn_brute.cu's k-list
 _GRID_PAD_COORD = 1.0e9   # empty-slot coordinate: d2 ~ 1e18, never in gate
 
 
@@ -66,7 +83,8 @@ def knn(
     distance. The selection is always exact: `approx=True` (the JAX
     package's `approx_max_k` on TPU, recall ~0.975) is accepted and ignored.
     On the CPU the JAX function is exact too, so the two agree there. The
-    order of exactly tied distances is torch.topk's and may differ from
+    order of exactly tied distances is by index where the kernel runs
+    (see the module docstring), else torch.topk's, and may differ from
     JAX's."""
     del approx
     with profiling.span("knn.knn"):
@@ -74,7 +92,27 @@ def knn(
         return _knn(query, data, k, block_size)
 
 
+def _takes_kernel(query: torch.Tensor, data: torch.Tensor, k: int) -> bool:
+    """Whether a brute search of `query` in `data` for k neighbors runs on
+    `knn_brute`: float32 [Q, D] and [N, D] on one CUDA device, D <= 4,
+    Q >= 1 and 1 <= k <= min(N, KERNEL_MAX_K). Anything else keeps the
+    plain form, and with it the plain form's results and errors (an empty
+    query gives empty outputs, k > N raises in `torch.topk`)."""
+    return (query.device.type == "cuda" and data.device == query.device
+            and query.dtype == torch.float32 and data.dtype == torch.float32
+            and len(query.shape) == 2 and len(data.shape) == 2
+            and query.shape[1] == data.shape[1] <= 4 and query.shape[0] >= 1
+            and 1 <= k <= min(data.shape[0], KERNEL_MAX_K))
+
+
 def _knn(query, data, k, block_size):
+    if _takes_kernel(query, data, k):
+        return knn_brute(query.contiguous(), data.contiguous(), k)
+    return _knn_blocked(query, data, k, block_size)
+
+
+def _knn_blocked(query, data, k, block_size):
+    """The plain form of `knn`: blocked [B, N] distances, then torch.topk."""
     rows = _rows_per_block(data.shape[0], block_size)
     d2s, idxs = [], []
     for q0 in range(0, query.shape[0], rows):
@@ -106,20 +144,121 @@ def hybrid_search(
 def nearest_neighbor(
     query: torch.Tensor, data: torch.Tensor, block_size: Optional[int] = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Single nearest neighbor: (sq_distance [Q], index [Q] int64). One
-    `min` over each [B, N] tile gives both; ties keep the first index."""
+    """Single nearest neighbor: (sq_distance [Q], index [Q] int64); ties
+    keep the first index."""
     with profiling.span("knn.nearest"):
         profiling.count("knn.pairs", query.shape[0] * data.shape[0])
-        rows = _rows_per_block(data.shape[0], block_size)
-        d2s, idxs = [], []
-        for q0 in range(0, query.shape[0], rows):
-            v, i = torch.min(_pairwise_sqdist(query[q0:q0 + rows], data), dim=1)
-            d2s.append(v)
-            idxs.append(i)
-        if not d2s:
-            return (query.new_zeros((0,)),
-                    torch.zeros((0,), dtype=torch.int64, device=query.device))
-        return torch.cat(d2s), torch.cat(idxs)
+        if _takes_kernel(query, data, 1):
+            d2, idx = knn_brute(query.contiguous(), data.contiguous(), 1)
+            return d2[:, 0], idx[:, 0]
+        return _nearest_blocked(query, data, block_size)
+
+
+def _nearest_blocked(query, data, block_size):
+    """The plain form of `nearest_neighbor`: one `min` over each [B, N]
+    tile gives both outputs."""
+    rows = _rows_per_block(data.shape[0], block_size)
+    d2s, idxs = [], []
+    for q0 in range(0, query.shape[0], rows):
+        v, i = torch.min(_pairwise_sqdist(query[q0:q0 + rows], data), dim=1)
+        d2s.append(v)
+        idxs.append(i)
+    if not d2s:
+        return (query.new_zeros((0,)),
+                torch.zeros((0,), dtype=torch.int64, device=query.device))
+    return torch.cat(d2s), torch.cat(idxs)
+
+
+# csrc/knn_brute.cu's kThreads, kRows, kChunk and kMaxSplits.
+_THREADS, _ROWS, _CHUNK, _MAX_SPLITS = 128, 4, 512, 64
+
+
+@functools.cache
+def _entry(name: str):
+    """A C entry point of csrc/knn_brute.cu (built on first use)."""
+    from gaussiansplattingregistration_tpu_torch.ops import _build
+
+    fn = getattr(_build.library("knn_brute"), name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i] if name == "knn_brute_blocks_per_sm" else [p, p, i, i, i, i, i] + [p] * 5
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _wave(device: int, k: int) -> int:
+    """The sweep's blocks that the card runs at once for k: its SMs times
+    the kernel's blocks an SM. Asked of the card once per device and k;
+    the first ask also allows the k-list kernel its shared memory there."""
+    with torch.cuda.device(device):
+        per_sm = _entry("knn_brute_blocks_per_sm")(k)
+    if per_sm < 1:
+        raise RuntimeError(f"knn_brute_blocks_per_sm({k}) failed: cudaError {-per_sm}")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _splits(n_query: int, n_data: int, k: int, wave: int) -> int:
+    """The ranges of the data the sweep splits into: enough blocks for one
+    full wave where the queries alone would leave SMs idle, at least one
+    staged chunk a range, at most `_MAX_SPLITS`."""
+    rows = _THREADS * _ROWS if k == 1 else _THREADS
+    blocks = -(-n_query // rows)
+    return max(1, min(wave // max(blocks, 1), n_data // _CHUNK, _MAX_SPLITS))
+
+
+def knn_brute(query: torch.Tensor, data: torch.Tensor, k: int):
+    """The k nearest rows of `data` to each row of `query` by the kernel of
+    `csrc/knn_brute.cu`: (sq_distances [Q, k] float32, indices [Q, k]
+    int64), ascending by (distance, index). Both inputs contiguous float32
+    [Q, D] and [N, D] on one CUDA device, 1 <= D <= 4, and
+    1 <= k <= min(N, KERNEL_MAX_K) (any k for Q = 0, which returns empty
+    outputs and launches nothing); raises on anything else. One call into
+    the library a search: launches on the current stream and reads nothing
+    back; adds one to `knn_brute.launches` and Q·N to the counter
+    `knn.kernel_pairs`."""
+    inputs = (("query", query), ("data", data))
+    for name, x in inputs:
+        if x.dtype != torch.float32:
+            raise ValueError(f"knn_brute: {name} must be float32, got {x.dtype}")
+    for name, x in inputs:
+        if x.ndim != 2 or not 1 <= x.shape[1] <= 4 or x.shape[0] >= 1 << 30:
+            raise ValueError(f"knn_brute: {name} must be [rows, 1..4] with rows < 2^30, "
+                             f"got {tuple(x.shape)}")
+    for name, x in inputs:
+        if not x.is_contiguous():
+            raise ValueError(f"knn_brute: {name} must be contiguous")
+    for name, x in inputs:
+        if x.device.type != "cuda":
+            raise ValueError(f"knn_brute needs CUDA tensors, got {name} on {x.device}")
+    if data.device != query.device or data.shape[1] != query.shape[1]:
+        raise ValueError(f"knn_brute: query {tuple(query.shape)} on {query.device} and data "
+                         f"{tuple(data.shape)} on {data.device} do not match")
+    n_query, n_data, dim = query.shape[0], data.shape[0], query.shape[1]
+    dev = query.device
+    d2 = torch.empty((n_query, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((n_query, k), dtype=torch.int64, device=dev)
+    if n_query == 0:
+        return d2, idx
+    if not 1 <= k <= min(n_data, KERNEL_MAX_K):
+        raise ValueError(f"knn_brute: k={k} outside [1, min({n_data}, {KERNEL_MAX_K})]")
+    with torch.cuda.device(dev):
+        splits = _splits(n_query, n_data, k, _wave(dev.index, k))
+        # Partial lists of the split sweep, [2, splits, Q, k] of 32 bits.
+        part = (torch.empty((2, splits, n_query, k), dtype=torch.int32, device=dev)
+                if k > 1 and splits > 1 else None)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _entry("knn_brute")(query.data_ptr(), data.data_ptr(), n_query, n_data, dim, k,
+                                  splits, d2.data_ptr(), idx.data_ptr(),
+                                  None if part is None else part[0].data_ptr(),
+                                  None if part is None else part[1].data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"knn_brute launch failed: cudaError {err}")
+    knn_brute.launches += 1
+    profiling.count("knn.kernel_pairs", n_query * n_data)
+    return d2, idx
+
+
+knn_brute.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -12,6 +12,7 @@ multiscale within 1e-4 of JAX's.
 """
 
 import os
+import types
 
 import numpy as np
 import jax.numpy as jnp
@@ -29,6 +30,7 @@ from gaussiansplattingregistration_tpu_torch.models import parameters as P
 from gaussiansplattingregistration_tpu_torch.models.point_cloud import PointCloud
 from gaussiansplattingregistration_tpu_torch.ops import icp, knn, normals, voxel
 from gaussiansplattingregistration_tpu_torch.pipelines import multiscale
+from gaussiansplattingregistration_tpu_torch.utils import profiling
 from tests.test_goldens import _pose_err
 from tests.test_icp import gt_transform, make_surface_cloud
 from tests.torch_threads import two_torch_threads  # noqa: F401
@@ -94,6 +96,171 @@ def test_knn_block_budget_bounds_the_tile():
     assert knn._rows_per_block(100_000, None) * 100_000 * 4 <= knn.BLOCK_BYTES
     assert knn._rows_per_block(10**10, None) == 1
     assert knn._rows_per_block(100, 64) == 64
+
+
+def _like(device: str, rows: int, dim: int, dtype=torch.float32):
+    """What the dispatch rule reads of an input: device, dtype and shape."""
+    return types.SimpleNamespace(device=torch.device(device), dtype=dtype, shape=(rows, dim))
+
+
+@pytest.mark.parametrize("device, dim, k, dtype, kernel", [
+    ("cuda", 3, 1, torch.float32, True),       # ICP's correspondences
+    ("cuda", 3, 32, torch.float32, True),      # HEM's candidates
+    ("cuda", 3, 128, torch.float32, True),
+    ("cuda", 1, 20, torch.float32, True),
+    ("cuda", 4, 30, torch.float32, True),
+    ("cuda", 5, 1, torch.float32, False),      # the Gram form
+    ("cuda", 33, 1, torch.float32, False),     # FPFH feature matching
+    ("cuda", 3, 129, torch.float32, False),    # past the kernel's k-list
+    ("cuda", 3, 0, torch.float32, False),
+    ("cuda", 3, 32, torch.float64, False),
+    ("cpu", 3, 32, torch.float32, False),      # the plain form
+    ("cpu", 3, 1, torch.float32, False),
+])
+def test_kernel_dispatch_rule(device, dim, k, dtype, kernel):
+    """The brute search runs on csrc/knn_brute.cu exactly for a CUDA
+    float32 query of D <= 4 and 1 <= k <= KERNEL_MAX_K."""
+    assert knn.KERNEL_MAX_K == 128
+    assert knn._takes_kernel(_like(device, 10, dim, dtype), _like(device, 500, dim, dtype),
+                             k) is kernel
+
+
+@pytest.mark.parametrize("case", ["empty_query", "k_above_n", "k_equals_n", "data_float64",
+                                  "data_on_another_card", "data_on_cpu", "dims_differ"])
+def test_kernel_dispatch_rule_reads_the_data_too(case):
+    """An empty query, k > N, and data that the kernel cannot take keep the
+    plain form, with its results (an empty query gives empty [0, k]
+    outputs) and its errors; k = N is the kernel's."""
+    query, data, k = _like("cuda:0", 10, 3), _like("cuda:0", 40, 3), 32
+    if case == "empty_query":
+        query = _like("cuda:0", 0, 3)
+    elif case == "k_above_n":
+        data = _like("cuda:0", 20, 3)
+    elif case == "k_equals_n":
+        data = _like("cuda:0", 32, 3)
+    elif case == "data_float64":
+        data = _like("cuda:0", 40, 3, torch.float64)
+    elif case == "data_on_another_card":
+        data = _like("cuda:1", 40, 3)
+    elif case == "data_on_cpu":
+        data = _like("cpu", 40, 3)
+    else:
+        data = _like("cuda:0", 40, 4)
+    assert knn._takes_kernel(query, data, k) is (case == "k_equals_n")
+
+
+@pytest.mark.parametrize("search", ["knn", "hybrid", "nearest"])
+def test_an_empty_query_gives_empty_outputs_past_n(monkeypatch, search):
+    """Q = 0 with N < k gives empty [0, k] outputs, as the plain form
+    always did, and never reaches the kernel's wrapper."""
+    def no_kernel(*_a, **_k):
+        raise AssertionError("the kernel's wrapper was called")
+
+    monkeypatch.setattr(knn, "knn_brute", no_kernel)
+    query, data = torch.zeros((0, 3)), torch.ones((5, 3))
+    if search == "knn":
+        out = knn.knn(query, data, 8)
+    elif search == "hybrid":
+        out = knn.hybrid_search(query, data, 0.5, 8)
+    else:
+        out = knn.nearest_neighbor(query, data)
+    want = (0,) if search == "nearest" else (0, 8)
+    assert all(tuple(x.shape) == want for x in out)
+    assert out[1].dtype == torch.int64
+
+
+@pytest.mark.parametrize("n_query, n_data, k, wave, splits", [
+    (66_500, 200_000, 32, 528, 1),      # HEM's level 0: 520 blocks fill the wave
+    (68_000, 68_000, 1, 528, 3),        # ICP's level 1: 133 blocks of 512 queries
+    (8_700, 8_700, 1, 528, 16),         # ICP's level 3: the chunk count binds
+    (8_700, 100_000, 1, 528, 31),       # 17 blocks: the wave binds
+    (7, 5000, 30, 1056, 9),             # one block: the chunk count binds
+    (7, 1_000_000, 30, 1056, 64),       # one block: at most 64 ranges
+    (1000, 511, 32, 1056, 1),           # less than one chunk of data
+])
+def test_split_plan(n_query, n_data, k, wave, splits):
+    """The ranges of the data a search splits into: one wave of blocks,
+    a staged chunk a range at least, 64 at most."""
+    assert knn._splits(n_query, n_data, k, wave) == splits
+
+
+@pytest.mark.parametrize("dim, k", [(3, 8), (3, 1), (33, 4), (3, 129)])
+def test_cpu_tensors_take_the_plain_path(rng, monkeypatch, dim, k):
+    """CPU tensors, D > 4 and k > 128 never reach the kernel's wrapper: the
+    public functions give the plain form's results, and no kernel pair is
+    counted."""
+    def no_kernel(*_a, **_k):
+        raise AssertionError("the kernel's wrapper was called")
+
+    monkeypatch.setattr(knn, "knn_brute", no_kernel)
+    data = t(rng.uniform(-1, 1, (400, dim)))
+    query = t(rng.uniform(-1, 1, (50, dim)))
+    profiling.reset()
+    with profiling.recording():
+        d2, idx = knn.knn(query, data, k)
+        hd2, hidx, valid = knn.hybrid_search(query, data, 0.5, k)
+        nd2, nidx = knn.nearest_neighbor(query, data)
+    pd2, pidx = knn._knn_blocked(query, data, k, None)
+    assert torch.equal(d2, pd2) and torch.equal(idx, pidx)
+    assert torch.equal(hd2, pd2) and torch.equal(hidx, pidx)
+    assert torch.equal(valid, pd2 <= 0.25)
+    pnd2, pnidx = knn._nearest_blocked(query, data, None)
+    assert torch.equal(nd2, pnd2) and torch.equal(nidx, pnidx)
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    assert counters["knn.pairs"] == 3 * 50 * 400
+    assert "knn.kernel_pairs" not in counters
+
+
+@pytest.mark.parametrize("case, match", [
+    ("float64", "float32"),
+    ("five_coords", r"\[rows, 1..4\]"),
+    ("three_dims", r"\[rows, 1..4\]"),
+    ("strided", "contiguous"),
+    ("cpu", "CUDA"),
+])
+def test_knn_brute_rejects_bad_inputs(case, match):
+    """The kernel's wrapper checks dtype, shape, contiguity and device
+    before it loads or launches anything."""
+    good = torch.zeros((64, 3))
+    bad = {"float64": torch.zeros((64, 3), dtype=torch.float64),
+           "five_coords": torch.zeros((64, 5)),
+           "three_dims": torch.zeros((4, 16, 3)),
+           "strided": torch.zeros((3, 64)).T,
+           "cpu": good}[case]
+    before = knn.knn_brute.launches
+    for query, data in ((bad, good), (good, bad)):
+        with pytest.raises(ValueError, match=match):
+            knn.knn_brute(query, data, 8)
+    assert knn.knn_brute.launches == before
+
+
+def test_plain_path_order_on_exact_ties(rng):
+    """What the plain form already gives on constructed ties (each point
+    three times, and HEM's dead rows at 1e12): the distances of the
+    (d2, index) order bit for bit, ascending; each index at its slot's
+    distance; and for k = 1, in `nearest_neighbor` and in `knn`, the
+    lowest index of a tie, the kernel's rule."""
+    pts = rng.uniform(-1, 1, (300, 3)).astype(np.float32)
+    far = pts.copy()
+    far[20:] = 1e12
+    for data in (np.concatenate([pts, pts, pts]), far):
+        q, d = t(pts[:60]), t(data)
+        full = knn._pairwise_sqdist(q, d)
+        order = torch.sort(full, dim=1, stable=True)
+        for k in (1, 2, 5, 32):
+            d2, idx = knn.knn(q, d, k)
+            assert torch.equal(d2.view(torch.int32), order.values[:, :k].view(torch.int32))
+            assert bool((d2[:, 1:] >= d2[:, :-1]).all())
+            assert torch.equal(torch.gather(full, 1, idx), d2)
+            if k == 1:
+                assert torch.equal(idx, order.indices[:, :1])
+        nd2, nidx = knn.nearest_neighbor(q, d)
+        assert torch.equal(nidx, order.indices[:, 0])
+        assert torch.equal(nd2, order.values[:, 0])
+    # Every query meets itself three times: the first copy wins.
+    assert torch.equal(knn.nearest_neighbor(t(pts), t(np.concatenate([pts] * 3)))[1],
+                       torch.arange(300))
 
 
 def _grid(points, gate):
