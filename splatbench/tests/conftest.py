@@ -2,6 +2,11 @@
 directory that holds the benchmark and tiny cells of its own, added as new
 files (configurations, cells), and a runner of `run.py` in a subprocess.
 
+Each configuration of BENCHMARK.json has a tiny stand-in in
+`tiny/<configuration>.json`: the stand-in's `name` and the keys it
+`overrides`, merged over `configs/<configuration>.json`. Each cell gets a
+tiny cell `tiny_<cell>` on its configuration's stand-in.
+
     python -m pytest splatbench/tests -q      # from the repository root
 
 Tests that need a card carry the `card` marker and skip without one."""
@@ -16,19 +21,30 @@ import sys
 
 import pytest
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(os.path.dirname(HERE))
+TINY = os.path.join(HERE, "tiny")
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-# Tiny stand-ins of the two configurations: the same keys and widths, a
-# small scene, so a CPU run takes seconds.
-TINY_CONFIGS = {
-    "tiny_splat": ("splat1m_sh3_720p", {"scene": {"splats": 1000, "scale_range": [0.04, 0.08]},
-                                        "camera": {"width": 64, "height": 48},
-                                        "rasterizer": {"max_splats_per_tile": 1024,
-                                                       "max_live_tiles": None}}),
-    "tiny_reg": ("reg200k_sh3", {"splats": 4000}),
-}
+with open(os.path.join(REPO, "BENCHMARK.json")) as _fh:
+    BENCH = json.load(_fh)
+
+
+def tiny_stand_in(config: str):
+    """(name, overrides) of a configuration's tiny stand-in, from
+    `tiny/<config>.json`; None where the configuration has none."""
+    path = os.path.join(TINY, config + ".json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as fh:
+        tiny = json.load(fh)
+    return tiny["name"], tiny["overrides"]
+
+
+def tiny_cells() -> list:
+    """The cells of BENCHMARK.json whose configuration has a tiny stand-in."""
+    return [w["name"] for w in BENCH["workloads"] if tiny_stand_in(w["config"]) is not None]
 
 
 def pytest_configure(config):
@@ -53,30 +69,43 @@ def _merge(base: dict, over: dict) -> dict:
 
 def make_checkout(root: str) -> str:
     """A checkout at `root`: BENCHMARK.json and splatbench/ (without its
-    tests), plus the tiny configurations and a tiny cell beside each cell,
-    all as new files and entries. Returns `root`."""
+    tests), plus each configuration's tiny stand-in and a tiny cell beside
+    each cell, all as new files and entries. A configuration without a
+    stand-in has no tiny cells (`test_every_configuration_has_a_tiny_stand_in`
+    names it). Returns `root`."""
     shutil.copytree(os.path.join(REPO, "splatbench"), os.path.join(root, "splatbench"),
                     ignore=shutil.ignore_patterns("tests", "__pycache__"))
     with open(os.path.join(REPO, "BENCHMARK.json")) as fh:
         bench = json.load(fh)
-    for name, (base, over) in TINY_CONFIGS.items():
-        with open(os.path.join(REPO, "splatbench", "configs", base + ".json")) as fh:
+    tiny_of = {}
+    for config in bench["configs"]:
+        stand_in = tiny_stand_in(config["name"])
+        if stand_in is None:
+            continue
+        name, over = stand_in
+        with open(os.path.join(REPO, config["file"])) as fh:
             cfg = _merge(json.load(fh), over)
         cfg["name"] = name
         with open(os.path.join(root, "splatbench", "configs", name + ".json"), "w") as fh:
             json.dump(cfg, fh)
-    tiny_of = {"splat1m_sh3_720p": "tiny_splat", "reg200k_sh3": "tiny_reg"}
-    for w in list(bench["workloads"]):
-        bench["workloads"].append({**w, "name": "tiny_" + w["name"], "config": tiny_of[w["config"]]})
+        tiny_of[config["name"]] = name
+    tiny = [{**w, "name": "tiny_" + w["name"], "config": tiny_of[w["config"]]}
+            for w in bench["workloads"] if w["config"] in tiny_of]
+    bench["workloads"] += tiny
+    made = {w["name"] for w in tiny}
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
-            m["workloads"] = m["workloads"] + ["tiny_" + w for w in m["workloads"]]
-    # The voxel jobs have no cell of their own yet; a tiny one runs them.
-    bench["workloads"].append({"name": "tiny_reg200k_voxel", "config": "tiny_reg",
-                               "traffic": "voxel_jobs", "chips": 1, "why": "a test cell"})
-    for m in bench["end_to_end"] + bench["per_layer"]:
-        if "tiny_reg200k_hem" in m.get("workloads", []) and m["name"] != "hem_s":
-            m["workloads"].append("tiny_reg200k_voxel")
+            m["workloads"] = m["workloads"] + ["tiny_" + w for w in m["workloads"]
+                                               if "tiny_" + w in made]
+    # The voxel jobs have no cell of their own yet; a tiny one beside the
+    # HEM cell runs them.
+    if "tiny_reg200k_hem" in made:
+        hem = next(w for w in tiny if w["name"] == "tiny_reg200k_hem")
+        bench["workloads"].append({**hem, "name": "tiny_reg200k_voxel", "traffic": "voxel_jobs",
+                                   "why": "a test cell"})
+        for m in bench["end_to_end"] + bench["per_layer"]:
+            if "tiny_reg200k_hem" in m.get("workloads", []) and m["name"] != "hem_s":
+                m["workloads"].append("tiny_reg200k_voxel")
     with open(os.path.join(root, "BENCHMARK.json"), "w") as fh:
         json.dump(bench, fh, indent=1)
     return root
@@ -90,7 +119,10 @@ def checkout(tmp_path_factory):
 def run_cell(root: str, workload: str, *extra, seed: int = 3_000_000_019, seconds: float = 1.0,
              trace: int = 0, device: str = "cpu", timeout: int = 600):
     """(return code, the last stdout line parsed or None, stderr) of one run."""
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    # The package comes from REPO, or from PYTHONPATH where REPO is a copy
+    # of the benchmark alone.
+    path = [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(path), OMP_NUM_THREADS="2")
     cmd = [sys.executable, os.path.join(root, "splatbench", "run.py"), "--workload", workload,
            "--seed", str(seed), "--seconds", str(seconds), "--trace", str(trace)]
     if device:

@@ -1,5 +1,7 @@
 """BENCHMARK.json keeps the benchmark's contract: allowed names and units,
-every file found by name, every per-layer metric reported where it says."""
+every file found by name, every per-layer metric reported where it says,
+at most a quarter of the cells on four chips, and every configuration
+with a tiny stand-in for the CPU tests (`tiny/<configuration>.json`)."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ import re
 
 import pytest
 
-from conftest import REPO
+from conftest import REPO, TINY, tiny_stand_in
 
 with open(os.path.join(REPO, "BENCHMARK.json")) as _fh:
     BENCH = json.load(_fh)
@@ -67,7 +69,7 @@ def test_top_level_keys_and_sizes():
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])
 def test_each_cell_finds_its_files_and_reports_what_it_must(cell):
     bench_dir = os.path.join(REPO, "splatbench")
-    assert cell["chips"] == 1 and len(cell["why"]) <= 200
+    assert cell["chips"] in (1, 4) and len(cell["why"]) <= 200
     cfg = json.load(open(os.path.join(bench_dir, "configs", cell["config"] + ".json")))
     assert cfg["name"] == cell["config"]
     traffic = json.load(open(os.path.join(bench_dir, "traffic", cell["traffic"] + ".json")))
@@ -77,6 +79,11 @@ def test_each_cell_finds_its_files_and_reports_what_it_must(cell):
     assert "setup_s" in e2e and len(e2e) >= 2
     layer = [m for m in BENCH["per_layer"] if cell["name"] in m.get("workloads", [cell["name"]])]
     assert layer, "every cell reports a per-layer metric"
+
+
+def test_at_most_a_quarter_of_the_cells_take_four_chips():
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4), four
 
 
 @pytest.mark.parametrize("metric", BENCH["per_layer"], ids=lambda m: m["name"])
@@ -95,3 +102,27 @@ def test_config_entries_match_their_files(cfg):
     assert data["source"] == cfg["source"] and len(cfg["source"]) <= 200
     assert data["reduced"] == cfg["reduced"]
     assert any(w["config"] == cfg["name"] for w in BENCH["workloads"])
+
+
+def _keys_exist(base: dict, over: dict) -> bool:
+    return all(k in base and (not isinstance(v, dict) or _keys_exist(base[k], v))
+               for k, v in over.items())
+
+
+@pytest.mark.parametrize("cfg", BENCH["configs"], ids=lambda c: c["name"])
+def test_every_configuration_has_a_tiny_stand_in(cfg):
+    stand_in = tiny_stand_in(cfg["name"])
+    assert stand_in is not None, (
+        f"configuration {cfg['name']} has no tiny stand-in: add "
+        f"splatbench/tests/tiny/{cfg['name']}.json (a name and the keys it overrides)")
+    name, over = stand_in
+    assert NAME.match(name) and name not in {c["name"] for c in BENCH["configs"]}, name
+    assert _keys_exist(json.load(open(os.path.join(REPO, cfg["file"]))), over), over
+
+
+def test_every_tiny_stand_in_belongs_to_a_configuration():
+    configs = {c["name"] for c in BENCH["configs"]}
+    files = sorted(f[:-len(".json")] for f in os.listdir(TINY) if f.endswith(".json"))
+    assert set(files) <= configs, files
+    names = [tiny_stand_in(f)[0] for f in files]
+    assert len(names) == len(set(names)), names

@@ -2,8 +2,9 @@
 (`splatbench/program_spans.py` and the metrics that use it): the division
 by the traced steps on a fabricated snapshot, None where the run has no
 device trace, where a span is missing and where the program has no
-snapshot. On a card: each tiny cell's traced run reports its new metrics,
-and tracing adds no synchronize to a frame or a registration job."""
+snapshot; their entries declared by name, and every reader declared. On a
+card: each tiny cell's traced run reports its new metrics, and tracing
+adds no synchronize to a frame or a registration job."""
 
 from __future__ import annotations
 
@@ -62,9 +63,18 @@ def rec(steps, trace=True):
             "traffic": {"trace_steps": steps}, "spans": {}}
 
 
-def test_the_new_entries_are_appended_and_complete():
-    names = [m["name"] for m in BENCH["per_layer"]]
-    assert set(names[-len(NEW):]) == NEW == set(EXPECTED)
+def test_the_new_entries_are_declared_and_complete():
+    # By name, wherever they sit in `per_layer`: later entries may follow.
+    names = {m["name"] for m in BENCH["per_layer"]}
+    assert NEW <= names and NEW == set(EXPECTED)
+
+
+def test_every_entry_has_its_reader_and_every_reader_is_an_entry():
+    names = {m["name"] for m in BENCH["per_layer"]}
+    metrics = os.path.join(REPO, "splatbench", "metrics")
+    readers = {f[:-len(".py")] for f in os.listdir(metrics) if f.endswith(".py")}
+    assert names == readers, {"without a reader": sorted(names - readers),
+                              "not declared": sorted(readers - names)}
 
 
 @pytest.mark.parametrize("name", sorted(EXPECTED))
