@@ -19,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from gaussiansplattingregistration_tpu_torch.utils import profiling
+
 
 def mse(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     return torch.mean((img1 - img2) ** 2)
@@ -46,7 +48,13 @@ def ssim(
     size_average: bool = True,
 ) -> torch.Tensor:
     """Windowed SSIM; images are [H, W, C] (or [C, H, W] matching shapes).
-    C1 = 0.01^2, C2 = 0.03^2, as the JAX package."""
+    C1 = 0.01^2, C2 = 0.03^2, as the JAX package. Its forward is the span
+    `metrics.ssim` (`utils/profiling.py`)."""
+    with profiling.span("metrics.ssim"):
+        return _ssim(img1, img2, window_size, size_average)
+
+
+def _ssim(img1, img2, window_size: int, size_average: bool) -> torch.Tensor:
     if img1.ndim == 3 and img1.shape[-1] in (1, 3):
         img1 = img1.permute(2, 0, 1)
         img2 = img2.permute(2, 0, 1)

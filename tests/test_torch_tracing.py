@@ -298,3 +298,57 @@ def test_device_intervals_resolve_wait_and_drop(monkeypatch):
     assert snap["spans"]["d"] == {"count": 1, "host_s": snap["spans"]["d"]["host_s"],
                                   "self_host_s": snap["spans"]["d"]["self_host_s"],
                                   "device_s": 0.0}
+
+
+# ------------------------------------------------------------ photometric
+
+PHOTOMETRIC_SPANS = {"photometric.step", "photometric.pose", "photometric.merge",
+                     "photometric.loss", "photometric.loss_vjp", "photometric.render_vjp",
+                     "photometric.adam", "metrics.ssim"}
+
+
+def refiner(n=300):
+    """A photometric refiner on two clouds of `scene` splats, 2 cameras."""
+    from gaussiansplattingregistration_tpu_torch.models.camera import Camera
+    from gaussiansplattingregistration_tpu_torch.pipelines import photometric
+
+    def cloud(seed):
+        g = torch.Generator().manual_seed(seed)
+        return GaussianCloud.create(
+            torch.randn(n, 3, generator=g) * 0.6 + torch.tensor([0.0, 0.0, 4.0]),
+            torch.randn(n, 1, 3, generator=g) * 0.3, torch.randn(n, 3, 3, generator=g) * 0.1,
+            torch.randn(n, 1, generator=g), torch.log(torch.rand(n, 3, generator=g) * 0.08 + 0.04),
+            torch.randn(n, 4, generator=g), sh_degree=DEG, device="cpu")
+
+    cams = [Camera.create(torch.eye(3), torch.tensor([dx, 0.0, 0.0]), 40.0, 40.0, W, H,
+                          device="cpu") for dx in (0.0, 0.3)]
+    targets = [torch.rand(H, W, 3, generator=torch.Generator().manual_seed(9)) for _ in cams]
+    return photometric.PhotometricRefiner(cloud(1), cams, targets, fixed_cloud=cloud(2),
+                                          config=TR.RasterizeConfig(max_splats_per_tile=128),
+                                          device="cpu")
+
+
+def test_a_photometric_step_records_its_spans_and_counters():
+    first = refiner()
+    off = [first.step() for _ in range(2)]
+    r = refiner()
+    with profiling.recording():
+        on = [r.step() for _ in range(2)]
+    assert on == off                                    # the loss is the same
+    snap = profiling.snapshot()
+    assert PHOTOMETRIC_SPANS <= set(snap["spans"])
+    views, steps = len(r.views), 2
+    assert snap["counters"]["photometric.views"] == views * steps
+    assert snap["counters"]["photometric.pixels"] == W * H * views * steps
+    assert snap["counters"]["photometric.splats"] == 600 * steps
+    for name in PHOTOMETRIC_SPANS - {"photometric.step", "photometric.adam"}:
+        assert snap["spans"][name]["count"] == views * steps, name
+    assert snap["spans"]["photometric.step"]["count"] == steps
+    recs = by_name(profiling.records())
+    steps_ids = {rec.request for rec in recs["photometric.step"]}
+    for name in PHOTOMETRIC_SPANS - {"photometric.step"}:
+        assert {rec.request for rec in recs[name]} <= steps_ids, name
+    assert all(rec.parent == "photometric.step" for rec in recs["photometric.render_vjp"])
+    assert all(rec.parent == "photometric.loss" for rec in recs["metrics.ssim"])
+    # The rasterizer's backward spans run inside the render VJP's request.
+    assert {rec.request for rec in recs["raster.gather_vjp"]} <= steps_ids
