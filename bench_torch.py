@@ -53,6 +53,7 @@ from gaussiansplattingregistration_tpu_torch.ops.rasterize import (
     RasterizeConfig,
     rasterize_arrays,
     rasterize_arrays_with_stats,
+    tile_bin,
 )
 from gaussiansplattingregistration_tpu_torch.pipelines import photometric
 from gaussiansplattingregistration_tpu_torch.pipelines.multiscale import (
@@ -91,12 +92,14 @@ def _sync(dev):
 
 def _launches():
     return {"composite_fwd": raster_cuda.composite_tiles.launches,
-            "composite_bwd": raster_cuda.composite_tiles_bwd.launches}
+            "composite_bwd": raster_cuda.composite_tiles_bwd.launches,
+            "tile_bin": tile_bin.launches}
 
 
 def _reset_launches():
     raster_cuda.composite_tiles.launches = 0
     raster_cuda.composite_tiles_bwd.launches = 0
+    tile_bin.launches = 0
 
 
 def card_line(dev) -> str:
@@ -363,7 +366,8 @@ def bench_raster(dev):
     _sync(dev)
     dt = (time.perf_counter() - t0) / ITERS
     launches = _launches()
-    if dev.type == "cuda" and launches != {"composite_fwd": ITERS, "composite_bwd": ITERS}:
+    if dev.type == "cuda" and launches != {"composite_fwd": ITERS, "composite_bwd": ITERS,
+                                           "tile_bin": ITERS}:
         raise RuntimeError(f"the timed frames launched {launches}, not {ITERS} of each kernel")
 
     pixels_per_s = WIDTH * HEIGHT / dt
@@ -552,7 +556,8 @@ def bench_photometric(dev):
     _sync(dev)
     dt = time.perf_counter() - t0
     launches = _launches()
-    if dev.type == "cuda" and launches != {"composite_fwd": steps, "composite_bwd": steps}:
+    if dev.type == "cuda" and launches != {"composite_fwd": steps, "composite_bwd": steps,
+                                           "tile_bin": steps}:
         raise RuntimeError(f"the timed steps launched {launches}, not {steps} of each kernel")
     return {
         "metric": "photometric_pose_opt_steps_per_s_100k_splats_640x360",

@@ -4,8 +4,10 @@ Builds every CUDA kernel of the port from the checkout, holds each against
 its plain-torch twin on the card (on seeded tiles, on adversarial tiles that
 probe the kernels' footprint culling, and at the bench frame's shapes; the
 backward launched twice must give the same bits) and the culling boxes
-the card computes against their plain formula, drives the port's main
-paths at the bench
+the card computes against their plain formula, and the tile-binning kernels
+(csrc/tile_bin.cu) against the plain form at the shapes of the two
+configurations that bin and of this script's main paths (`tile_bin_check`,
+with their times), drives the port's main paths at the bench
 scene's full width (1M splats at 1280x720): the forward render, the
 gradients of the whole rasterizer against the plain-torch backend,
 fwd+bwd timing, and photometric pose refinement; then the `render` and
@@ -690,6 +692,169 @@ def knn_kernel_check(dev) -> list:
     return out
 
 
+def tile_bin_args(name: str, means, cov, view, intr, width: int, height: int, cfg) -> tuple:
+    """(name, (means2d, radius, depth, valid), tiles_x, tiles_y, cfg): the
+    tile table's inputs of a frame, projected as the rasterizer projects
+    it."""
+    from gaussiansplattingregistration_tpu_torch.ops import rasterize as R
+
+    proj = R.project_gaussians(means, cov, view, intr, width, height, cfg)
+    ts = cfg.tile_size
+    return (name, tuple(proj[k] for k in TABLE_INPUTS), -(-width // ts), -(-height // ts), cfg)
+
+
+def tile_bin_cells(dev, seed: int = 123) -> list:
+    """`tile_bin_args` of the tile table at the shapes of the two
+    configurations that bin (splatbench's draws of `seed`):
+    `photo_pair_step`'s first view (yaw 0 of the pair of 1.1M-splat room
+    captures, 1557x1038, C=36, K=3072) and `splat1m_train` /
+    `splat1m_view`'s first frame (1M splats, 1280x720, C=4, K=512,
+    `max_live_tiles` 2688); then at the inputs of this script's main paths:
+    the bench frame at `bench_config()` (the photometric, render and grad
+    phases' frame, whose plain-backend comparisons bin on the card too)
+    and config 5's first camera (`config5_scene`)."""
+    from splatbench import scenes
+    from splatbench.drivers.photometric import look_at_views
+    from splatbench.drivers.raster import _port_config
+    from splatbench.reference import raster as ref_raster
+
+    def binned(name, means, cov, view, intr, width, height, rz):
+        return tile_bin_args(name, means, cov, view, intr, width, height,
+                             _port_config(rz, None))
+
+    photo = load_json(os.path.join(REPO, "splatbench", "configs", "photo_pair1m_sh3_1557.json"))
+    pair = [scenes.reg_scene(photo["scene"], photo["splats"], s, dev) for s in (seed, seed + 1)]
+    means = torch.cat([p["xyz"] for p in pair])
+    cov = torch.cat([p["covariance"] for p in pair])
+    del pair
+    cams = photo["cameras"]
+    out = [binned("photo_pair_step_view", means, cov, *look_at_views(cams, dev)[0],
+                  int(cams["width"]), int(cams["height"]), photo["rasterizer"])]
+    del means, cov
+    splat = load_json(os.path.join(REPO, "splatbench", "configs", "splat1m_sh3_720p.json"))
+    cam = splat["camera"]
+    W, H = int(cam["width"]), int(cam["height"])
+    xyz, cov6, _, _ = scenes.splat_scene(splat["scene"], seed, dev)
+    out.append(binned("splat1m_frame", xyz, cov6,
+                      *ref_raster.camera(0.0, W, H, cam["fov_deg"], cam["distance"], dev),
+                      W, H, splat["rasterizer"]))
+    del xyz, cov6
+    for name, (args, cfg) in (("bench_config", bench_scene(dev)),
+                              ("config5", config5_frame(dev))):
+        out.append(tile_bin_args(name, *args[:2], *args[4:8], cfg))
+    return out
+
+
+def config5_frame(dev) -> tuple:
+    """(rasterize_arrays arguments, config) of config 5's first camera."""
+    cloud, cams, cfg = config5_scene(dev)
+    return frame_args(cloud, cams[0]), cfg
+
+
+def tile_bin_compare(got, want) -> dict:
+    """`tile_bin`'s outputs `got` against the plain form's `want`: the
+    table, counts, order and counters equal, and the sorted entries equal
+    the plain form's first E (past which it holds only empty slots)."""
+    E = got[1].numel()
+    stats = ({k: bool(torch.equal(got[5][k], want[5][k])) for k in want[5]}
+             if want[5] is not None else {})
+    rec = {"entries": E, "slots": want[1].numel(),
+           "table_equal": bool(torch.equal(got[0], want[0])),
+           "counts_equal": bool(torch.equal(got[3], want[3])),
+           "order_equal": (got[4] is None and want[4] is None)
+           or (got[4] is not None and want[4] is not None and bool(torch.equal(got[4], want[4]))),
+           "sorted_entry_equal": bool(torch.equal(got[1], want[1][:E])),
+           "stats_equal": all(stats.values()),
+           "stats": {k: int(v) for k, v in (got[5] or {}).items()}}
+    rec["equal"] = all(rec[k] for k in ("table_equal", "counts_equal", "order_equal",
+                                         "sorted_entry_equal", "stats_equal"))
+    return rec
+
+
+def device_busy_ms(fn, iters: int = 5) -> float:
+    """Device time of every kernel and copy of one call of `fn`, from a
+    torch.profiler trace of `iters` calls (idle between them left out)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / iters / 1e3
+
+
+# The projection's outputs the tile table is built from, in its argument order.
+TABLE_INPUTS = ("means2d", "radius", "depth", "valid")
+TILE_BIN_FIELDS = ("cell", "splats", "valid", "entries", "slots", "kernel_ms",
+                   "kernel_device_ms", "plain_ms", "bound_ms", "bound_share",
+                   "entry_out_bytes")
+
+
+def tile_bin_shape(name, args, tiles_x, tiles_y, cfg) -> dict:
+    """`tile_bin` (csrc/tile_bin.cu) against the plain form on the card at
+    one frame's table inputs `args`: the table, counts, order and counters
+    equal integer for integer (`tile_bin_compare`), a launch counted a
+    call, the counters' entries over slots; then the kernel path's ms
+    (events around a whole call, its one host read included), its device
+    time (profiler), the plain form's ms and the bound: the least bytes
+    the call must read and write at 3.35 TB/s (1 B a splat's flag, 16 B a
+    valid splat's mean, radius and depth, the [T, K] int32 table, 8 B a
+    tile of counts and order). The sorted entry ids it returns besides are
+    `entry_out_bytes` (4 B an entry), outside the bound. Raises on any
+    difference."""
+    from gaussiansplattingregistration_tpu_torch.ops import rasterize as R
+    from gaussiansplattingregistration_tpu_torch.utils import profiling
+
+    run = functools.partial(R._build_tile_table, *args, tiles_x, tiles_y, cfg, with_stats=True)
+    plain = functools.partial(R._build_tile_table_plain, *args, tiles_x, tiles_y, cfg,
+                              with_stats=True)
+    before = R.tile_bin.launches
+    profiling.reset()
+    with profiling.recording():
+        got = run()
+    counters = profiling.snapshot()["counters"]
+    launched = R.tile_bin.launches - before
+    want = plain()
+    torch.cuda.synchronize()
+    rec = {"cell": name, "splats": args[0].shape[0], "valid": int(args[3].sum()),
+           "tiles": tiles_x * tiles_y, "C": cfg.max_tiles_per_splat,
+           "K": cfg.max_splats_per_tile, "launches": launched,
+           "bin_entries": counters.get("raster.bin_entries"),
+           "bin_slots": counters.get("raster.bin_slots"),
+           **tile_bin_compare(got, want)}
+    del got, want
+    if not (launched == 1 and rec["equal"] and rec["bin_entries"] == rec["entries"]
+            and rec["bin_slots"] == rec["slots"]):
+        raise AssertionError(f"tile_bin disagrees with the plain form: {rec}")
+    rec["entries_over_slots"] = rec["bin_entries"] / rec["bin_slots"]
+    # Timed as the rasterizer calls it, without the counters.
+    timed = functools.partial(R._build_tile_table, *args, tiles_x, tiles_y, cfg)
+    rec["kernel_ms"] = cuda_ms(timed, 10)
+    rec["kernel_device_ms"] = device_busy_ms(timed)
+    rec["plain_ms"] = cuda_ms(functools.partial(R._build_tile_table_plain, *args, tiles_x,
+                                                tiles_y, cfg), 3, warmup=1)
+    nbytes = (rec["splats"] + 16 * rec["valid"] + 4 * rec["tiles"] * rec["K"]
+              + 8 * rec["tiles"])
+    rec["bound_bytes"] = nbytes
+    rec["bound_ms"] = 1e3 * nbytes / PEAK_BYTES_PER_S
+    rec["bound_share"] = rec["bound_ms"] / rec["kernel_device_ms"]
+    rec["entry_out_bytes"] = 4 * rec["entries"]
+    return rec
+
+
+def tile_bin_fields(recs) -> list:
+    """The `kernels` line's fields of `tile_bin_shape` records."""
+    return [{k: r[k] for k in TILE_BIN_FIELDS} for r in recs]
+
+
+def tile_bin_check(dev) -> list:
+    """`tile_bin_shape` at each of `tile_bin_cells`' shapes."""
+    return [tile_bin_shape(*cell) for cell in tile_bin_cells(dev)]
+
+
 def knn_phase(dev, surf_src, surf_tgt, vol) -> dict:
     """Neighbor search at 100k points on the card against the CPU: nearest
     neighbor on a 10k-query subset and knn(k=32) on 2k queries of the
@@ -1043,9 +1208,10 @@ def cli_e2e_phase(dev, raster_cuda, tmp) -> dict:
                                 device=dev)
     rec["evaluate_launches"] = read_launches(raster_cuda)
     rec["evaluate_psnr_in_process"] = res.psnr
-    if rec["evaluate_launches"] != {"composite_fwd": len(cams), "composite_bwd": 0}:
+    if rec["evaluate_launches"] != {"composite_fwd": len(cams), "composite_bwd": 0,
+                                    "tile_bin": len(cams)}:
         raise AssertionError(f"evaluate launches {rec['evaluate_launches']}, "
-                             f"expected one composite_fwd per camera")
+                             f"expected one composite_fwd and one tile_bin per camera")
     if not abs(res.psnr - metrics["psnr"]) < 1e-4:
         raise AssertionError(f"evaluate in process {res.psnr} vs cli {metrics['psnr']}")
     return rec
@@ -1354,10 +1520,12 @@ def viewer_phase(dev, raster_cuda) -> tuple:
     default and the zoomed view against the plain path on the card: the
     frame against backend "torch" within 1e-4, and composite_fwd against
     its twin on that view's own kernel inputs at the bench shapes'
-    tolerances (rgb/alpha 1e-4, depth 4e-4, live equal). Returns (record,
-    the viewer's `kernels` entry for composite_fwd: its launches in the six
-    frames, its error on the viewer's inputs, and its device time, plain
-    time and bound on the default view's)."""
+    tolerances (rgb/alpha 1e-4, depth 4e-4, live equal), and the default
+    view's tile table by `tile_bin_shape`. Returns (record, the viewer's
+    `kernels` entry for composite_fwd: its launches in the six frames, its
+    error on the viewer's inputs, and its device time, plain time and bound
+    on the default view's; the viewer's tile_bin entry: its launches in the
+    six frames and the default view's shape)."""
     from gaussiansplattingregistration_tpu_torch.pipelines import viewer
     from gaussiansplattingregistration_tpu_torch.utils.png import decode_png
 
@@ -1401,6 +1569,7 @@ def viewer_phase(dev, raster_cuda) -> tuple:
     tcfg = dataclasses.replace(cfg, backend="torch")
     bg = torch.tensor(scene.background, device=dev)
     parity, entry = {}, {"launches": launches["composite_fwd"], "max_abs_err": 0.0}
+    bins = {"launches": launches["tile_bin"], "shapes": []}
     for name, q in (("default", {}), ("zoom", {"zoom": "-10"})):
         cam = scene.camera_for(q, width, height)
         rgb_cuda = rasterize(scene.cloud, cam, background=scene.background, config=cfg,
@@ -1427,6 +1596,9 @@ def viewer_phase(dev, raster_cuda) -> tuple:
                 and errs[1] <= 1e-4 and errs[2] <= 4e-4 and live_eq):
             raise AssertionError(f"viewer {name} view against the plain path: {parity[name]}")
         if name == "default" and dev.type == "cuda":
+            bins["shapes"].append(tile_bin_shape(
+                "viewer_default", tuple(inputs["proj"][k] for k in TABLE_INPUTS),
+                *inputs["tiles"], cfg))
             fb = fwd_bound(gT, cnt, got, ts, cfg)
             entry.update({
                 "ms": kernel_device_ms(lambda: raster_cuda.composite_tiles(gT, cnt, ts, cfg),
@@ -1448,14 +1620,15 @@ def viewer_phase(dev, raster_cuda) -> tuple:
            "consecutive_mean_abs_diff": [float(np.abs(a - b).mean())
                                          for a, b in zip(frames, frames[1:])],
            "launches": launches, "nan_request_code": bad_code, "code_after_nan": after_code,
-           "against_plain_path": parity, "kernel": entry}
+           "against_plain_path": parity, "kernel": entry, "tile_bin": bins}
     if not (rec["page_ok"] and rec["state"]["num_points"] == cloud.num_points
             and all(s > 0.05 for s in rec["non_background_share"])
             and all(d > 0.1 for d in rec["consecutive_mean_abs_diff"])
-            and launches == {"composite_fwd": len(views), "composite_bwd": 0}
+            and launches == {"composite_fwd": len(views), "composite_bwd": 0,
+                             "tile_bin": len(views)}
             and bad_code == 500 and after_code == 200):
         raise AssertionError(f"viewer: {rec}")
-    return rec, entry
+    return rec, entry, bins
 
 
 def port_cli_in_process(dev, *args) -> dict:
@@ -1629,7 +1802,7 @@ def visibility_edges(gT, cnt, ts: int, config, tiles_per_step: int = 256) -> tup
     return torch.cat(pix_out), torch.cat(ent_out)
 
 
-def path_kernels(raster_cuda, args, cfg, seed: int) -> tuple:
+def path_kernels(raster_cuda, args, cfg, seed: int, name: str) -> tuple:
     """Both kernels on the inputs of the frame `args`, a main path's own.
     composite_fwd against its twin at the bench shapes' tolerances (rgb
     and alpha 1e-4, depth 4e-4), except at pixels where the two put a pair
@@ -1640,11 +1813,14 @@ def path_kernels(raster_cuda, args, cfg, seed: int) -> tuple:
     twin by `check_bwd` on seeded cotangents, its error split between the
     entries those pixels touch and the rest. `max_abs_err` is over the
     whole frame; the flipped pixels' count and errors stand beside it.
-    Each one's device time per launch, its twin's time and its bound.
-    Returns (the `kernels` fields of composite_fwd, those of composite_bwd,
+    Each one's device time per launch, its twin's time and its bound. The
+    frame's tile table by `tile_bin_shape` (`name`). Returns (the `kernels`
+    fields of composite_fwd, those of composite_bwd, the tile_bin shape,
     the frame's tile and pair counts)."""
     ts = cfg.tile_size
     inputs = kernel_inputs(args, cfg)
+    bins = tile_bin_shape(name, tuple(inputs["proj"][k] for k in TABLE_INPUTS),
+                          *inputs["tiles"], cfg)
     gT, cnt = inputs["gT"], inputs["cnt"]
     got = raster_cuda.composite_tiles(gT, cnt, ts, cfg)
     torch.cuda.synchronize()
@@ -1695,8 +1871,8 @@ def path_kernels(raster_cuda, args, cfg, seed: int) -> tuple:
                lambda: raster_cuda.composite_tiles_reference_bwd(gT, cnt, *cts, ts, cfg),
                iters=3, warmup=1),
            "bound_ms": bb["bound_ms"], "bound_by": bb["bound_by"]}
-    return fwd, bwd, {"tiles": int(T_live), "K": int(gT.shape[2]),
-                      "read_entries": fb["read_entries"], **fb["pairs"]}
+    return fwd, bwd, bins, {"tiles": int(T_live), "K": int(gT.shape[2]),
+                            "read_entries": fb["read_entries"], **fb["pairs"]}
 
 
 def mse_loss_grad(splats, views, width: int, height: int, sh_degree: int, config, xi) -> float:
@@ -1817,7 +1993,8 @@ def parallel_world1_phase(dev, raster_cuda) -> tuple:
     the single-device step; then ms per step of each beside the
     single-device step on the same inputs, in turns. The group is made
     here and destroyed at the end. Returns (record, the `kernels` fields of
-    composite_fwd and composite_bwd on the `sharded_train_step` path)."""
+    composite_fwd, composite_bwd and tile_bin on the `sharded_train_step`
+    path)."""
     import torch.distributed as dist
 
     from gaussiansplattingregistration_tpu_torch.models.camera import Camera
@@ -1850,14 +2027,15 @@ def parallel_world1_phase(dev, raster_cuda) -> tuple:
         e_ag, e_ds = rec["all_gather_max_abs_err"], rec["depth_sharded_max_abs_err"]
         if not (max(e_ag) <= 1e-6 and e_ds[0] <= 1e-5 and e_ds[1] <= 1e-5 and e_ds[2] <= 1e-4
                 and rec["dropped"] == 0 and not any(overflow)
-                and rec["render_launches"] == {"composite_fwd": 2, "composite_bwd": 0}):
+                and rec["render_launches"] == {"composite_fwd": 2, "composite_bwd": 0,
+                                               "tile_bin": 2}):
             raise AssertionError(f"parallel_world1 renders: {rec}")
         del ag, ds, single
 
         views = train_views(cloud, cams, cfg, dev)
         runs = {"single": single_stepper(cloud, cams, views, cfg, dev)}
         want = runs["single"]()
-        path_launches = {"composite_fwd": 0, "composite_bwd": 0}
+        path_launches = {"composite_fwd": 0, "composite_bwd": 0, "tile_bin": 0}
         for comp in ("all_gather", "depth_sharded"):
             runs[comp] = sharded_stepper(mesh, cloud, cams, views, cfg, comp, dev)
             reset_launches(raster_cuda)
@@ -1865,7 +2043,7 @@ def parallel_world1_phase(dev, raster_cuda) -> tuple:
             launches = read_launches(raster_cuda)
             rec[f"{comp}_step"] = {**step_parity(got, want), "launches": launches}
             if not (rec[f"{comp}_step"]["ok"]
-                    and launches == {"composite_fwd": 2, "composite_bwd": 2}):
+                    and launches == {"composite_fwd": 2, "composite_bwd": 2, "tile_bin": 2}):
                 raise AssertionError(f"parallel_world1 {comp} step: {rec[f'{comp}_step']}")
             path_launches = {k: v + launches[k] for k, v in path_launches.items()}
         turns = {k: [] for k in runs}
@@ -1879,14 +2057,14 @@ def parallel_world1_phase(dev, raster_cuda) -> tuple:
                 turns[k].append((time.perf_counter() - t0) * 1e3 / 3)
         rec["ms_per_step"] = {k: sum(v) / len(v) for k, v in turns.items()}
         rec["ms_per_step_turns"] = turns
-        fwd, bwd, rec["kernel_inputs"] = path_kernels(raster_cuda, frame_args(cloud, cams[1]),
-                                                      cfg, seed=3)
+        fwd, bwd, bins, rec["kernel_inputs"] = path_kernels(
+            raster_cuda, frame_args(cloud, cams[1]), cfg, seed=3, name="sharded_step_camera1")
     finally:
         distributed.shutdown()
     rec["path_launches"] = path_launches
     fwd["launches"], bwd["launches"] = path_launches["composite_fwd"], \
         path_launches["composite_bwd"]
-    return rec, fwd, bwd
+    return rec, fwd, bwd, {"launches": path_launches["tile_bin"], "shapes": [bins]}
 
 
 def config5_scene(dev):
@@ -1999,8 +2177,8 @@ def parallel_two_ranks_phase(tmp) -> dict:
                                  "single_exact_overflow_tiles", "all_gather_max_abs_err",
                                  "depth_sharded_max_abs_err", "all_gather_step",
                                  "depth_sharded_step")}}
-    render = {"composite_fwd": 1, "composite_bwd": 0}
-    step = {"composite_fwd": 2, "composite_bwd": 2}
+    render = {"composite_fwd": 1, "composite_bwd": 0, "tile_bin": 1}
+    step = {"composite_fwd": 2, "composite_bwd": 2, "tile_bin": 2}
     ok_errs = [e <= tol for errs in (r0["all_gather_max_abs_err"],
                                      r0["depth_sharded_max_abs_err"])
                for e, tol in zip(errs, (1e-5, 1e-5, 1e-4))]
@@ -2037,7 +2215,8 @@ def cli_sharded_eval_phase(dev, raster_cuda, tmp) -> dict:
                 "launches": launches, "group_left_up": dist.is_initialized()})
     if not (all(d <= 1e-5 for d in rec["abs_diff"].values()) and out["on"]["lpips"] is None
             and not rec["group_left_up"] and out["on"]["error_list"] == []
-            and all(v == {"composite_fwd": 3, "composite_bwd": 0} for v in launches.values())):
+            and all(v == {"composite_fwd": 3, "composite_bwd": 0, "tile_bin": 3}
+                    for v in launches.values())):
         raise AssertionError(f"cli_sharded_eval: {rec}")
     return rec
 
@@ -2055,10 +2234,11 @@ def bench_phase(dev, raster_cuda, tmp) -> tuple:
     truncation oracle >= 40 dB, no tile over the backward cap, no live tile
     past max_live_tiles, 32 + 32 kernel launches over the timed frames; the
     four secondaries by bench.py's names, none failed, config 5's timed
-    steps 10 + 10 launches. Then both kernels on config 5's own frame
+    steps 10 + 10 launches (and one tile_bin a frame and a step). Then
+    both kernels and the tile table on config 5's own frame
     (`path_kernels`; seed 5 for the cotangents). Returns (record, the
-    `kernels` fields of composite_fwd and of composite_bwd on that path,
-    with config 5's launches from the subprocess)."""
+    `kernels` fields of composite_fwd, composite_bwd and tile_bin on that
+    path, with config 5's launches from the subprocess)."""
     extra = os.path.join(tmp, "extra.json")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2079,34 +2259,44 @@ def bench_phase(dev, raster_cuda, tmp) -> tuple:
            "values": {BENCH_HEADLINE: head.get("value"),
                       **{m: secondary.get(m, {}).get("value") for m in BENCH_SECONDARIES}},
            "secondary": list(secondary.values())}
-    steps = {"composite_fwd": 10, "composite_bwd": 10}
+    steps = {"composite_fwd": 10, "composite_bwd": 10, "tile_bin": 10}
     failed = [r for r in secondary.values() if "error" in r]
     if not (head.get("metric") == BENCH_HEADLINE and head["value"] > 0
             and detail["truncation_psnr_db"] >= 40.0
             and detail["bwd_cap_violations"] == 0 and detail["live_tile_overflow"] == 0
-            and detail["launches"] == {"composite_fwd": 32, "composite_bwd": 32}
+            and detail["launches"] == {"composite_fwd": 32, "composite_bwd": 32, "tile_bin": 32}
             and sorted(secondary) == sorted(BENCH_SECONDARIES) and not failed
             and photo.get("launches") == steps):
         raise AssertionError(f"bench: {rec}")
 
-    cloud, cams, cfg = config5_scene(dev)
-    fwd, bwd, counts = path_kernels(raster_cuda, frame_args(cloud, cams[0]), cfg, seed=5)
+    args, cfg = config5_frame(dev)
+    fwd, bwd, bins, counts = path_kernels(raster_cuda, args, cfg, seed=5, name="config5_frame")
     rec["config5_frame"] = counts
-    for fields, name in ((fwd, "composite_fwd"), (bwd, "composite_bwd")):
+    bins = {"shapes": [bins]}
+    for fields, name in ((fwd, "composite_fwd"), (bwd, "composite_bwd"), (bins, "tile_bin")):
         fields["launches"] = photo["launches"][name]
         fields["launches_per_step"] = photo["launches"][name] / steps[name]
-    return rec, fwd, bwd
+    return rec, fwd, bwd, bins
 
 
 def reset_launches(raster_cuda) -> None:
+    from gaussiansplattingregistration_tpu_torch.ops import rasterize as R
+
     raster_cuda.composite_tiles.launches = 0
     raster_cuda.composite_tiles_bwd.launches = 0
+    R.tile_bin.launches = 0
 
 
 def read_launches(raster_cuda) -> dict:
+    """The launches since `reset_launches`: each composite kernel's, and
+    `tile_bin`'s, one a tile table built (so one a composite_fwd launch
+    wherever only backend "cuda" renders)."""
+    from gaussiansplattingregistration_tpu_torch.ops import rasterize as R
+
     torch.cuda.synchronize()
     return {"composite_fwd": raster_cuda.composite_tiles.launches,
-            "composite_bwd": raster_cuda.composite_tiles_bwd.launches}
+            "composite_bwd": raster_cuda.composite_tiles_bwd.launches,
+            "tile_bin": R.tile_bin.launches}
 
 
 def main() -> int:
@@ -2191,6 +2381,9 @@ def main() -> int:
         if where.startswith("seeded") and not pairs["clamped"]:
             raise AssertionError("no seeded pair reaches the alpha_max clamp")
     emit({"phase": "footprint", **footprint_check(dev)})
+    t0 = time.perf_counter()
+    tile_bin_recs = tile_bin_check(dev)
+    emit({"phase": "tile_bin", "cells": tile_bin_recs, "seconds": time.perf_counter() - t0})
 
     # 4. The forward path at full width: the bench scene through
     # rasterize_arrays_with_stats, then the same frame on backend="torch".
@@ -2284,7 +2477,7 @@ def main() -> int:
           "live_tile_overflow": int(gstats["live_tile_overflow"]),
           "bwd_cap_violations": int(gstats["bwd_cap_violations"]),
           "seconds": time.perf_counter() - t0})
-    if launches_grad != {"composite_fwd": 1, "composite_bwd": 1}:
+    if launches_grad != {"composite_fwd": 1, "composite_bwd": 1, "tile_bin": 1}:
         raise AssertionError(f"grad launches {launches_grad}, expected one of each")
     if int(gstats["live_tile_overflow"]) or int(gstats["bwd_cap_violations"]):
         raise AssertionError("the gradient frame overflowed a static bound")
@@ -2413,7 +2606,7 @@ def main() -> int:
         raise AssertionError("photometric pose is not finite")
     if not result.loss_history[-1] < result.loss_history[0]:
         raise AssertionError(f"photometric loss did not fall: {result.loss_history}")
-    if launches_photo != {"composite_fwd": steps, "composite_bwd": steps}:
+    if launches_photo != {"composite_fwd": steps, "composite_bwd": steps, "tile_bin": steps}:
         raise AssertionError(f"photometric launches {launches_photo}, expected {steps} each")
     del cloud, moved, targets
 
@@ -2499,7 +2692,7 @@ def main() -> int:
         rec = fn()
         emit({"phase": phase, "card": card, **rec, "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    viewer_rec, viewer_fwd = viewer_phase(dev, raster_cuda)
+    viewer_rec, viewer_fwd, viewer_bins = viewer_phase(dev, raster_cuda)
     emit({"phase": "viewer", "card": card, **viewer_rec, "seconds": time.perf_counter() - t0})
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -2512,7 +2705,7 @@ def main() -> int:
     # two gloo ranks sharing the card in two processes, and `evaluate
     # --sharded on` in this process.
     t0 = time.perf_counter()
-    world1_rec, world1_fwd, world1_bwd = parallel_world1_phase(dev, raster_cuda)
+    world1_rec, world1_fwd, world1_bwd, world1_bins = parallel_world1_phase(dev, raster_cuda)
     emit({"phase": "parallel_world1", "card": card, **world1_rec,
           "seconds": time.perf_counter() - t0})
     with tempfile.TemporaryDirectory() as tmp:
@@ -2530,7 +2723,7 @@ def main() -> int:
     # kernels on the inputs of its config 5 (bench.py's photometric config).
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        bench_rec, bench_fwd, bench_bwd = bench_phase(dev, raster_cuda, tmp)
+        bench_rec, bench_fwd, bench_bwd, bench_bins = bench_phase(dev, raster_cuda, tmp)
         emit({"phase": "bench", "card": card, **bench_rec,
               "seconds": time.perf_counter() - t0})
 
@@ -2544,13 +2737,19 @@ def main() -> int:
     # counted in its own process); then the kNN kernel, which replaces no
     # TPU kernel: its launches in the registration path's icp, hem and
     # multiscale phases (`brute_launches`), beside its times at the
-    # registration cell's shapes (`knn_kernel_check`).
+    # registration cell's shapes (`knn_kernel_check`); then the tile-binning
+    # kernel, which replaces no TPU kernel either, on the same four paths:
+    # its launches there (one a table) and its numbers on the path's own
+    # frame; the photometric path's entry carries the `tile_bin` phase's
+    # shapes (the two cells' frames, the bench frame, config 5's camera 0).
     src = "gaussiansplattingregistration_tpu_torch/csrc/"
     ref = "gaussiansplattingregistration_tpu/ops/raster_pallas.py:"
     fwd = {"name": "composite_fwd", "route": "cuda", "source": src + "composite_fwd.cu",
            "replaces": ref + "173"}
     bwd = {"name": "composite_bwd", "route": "cuda", "source": src + "composite_bwd.cu",
            "replaces": ref + "270"}
+    bins = {"name": "tile_bin", "route": "cuda", "source": src + "tile_bin.cu", "replaces": None,
+            "bound_by": "bytes", "library_ms": None}
     emit({"kernels": [
         {**fwd, "path": "photometric", "launches": launches_photo["composite_fwd"],
          "max_abs_err": max(errs), "ms": kernel_ms, "plain_ms": plain_ms,
@@ -2572,6 +2771,13 @@ def main() -> int:
                      "bound_share": c["bound_share"]}
                     for c in reg_recs["knn"]["kernel"] if "kernel_ms" in c],
          "bound_by": "fp32_issue", "library_ms": None},
+        {**bins, "path": "photometric", "launches": launches_photo["tile_bin"],
+         "shapes": tile_bin_fields(tile_bin_recs)},
+        {**bins, "path": "viewer", **viewer_bins, "shapes": tile_bin_fields(viewer_bins["shapes"])},
+        {**bins, "path": "sharded_train_step", **world1_bins,
+         "shapes": tile_bin_fields(world1_bins["shapes"])},
+        {**bins, "path": "bench_config5", **bench_bins,
+         "shapes": tile_bin_fields(bench_bins["shapes"])},
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

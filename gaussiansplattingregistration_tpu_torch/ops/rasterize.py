@@ -10,7 +10,10 @@ background blending, `radius_clip=3` culling. Pipeline:
 3. ONE stable sort over a fused (tile id | quantized depth) key in entry-id
    order, so near-equal depths keep entry-id order exactly as the JAX
    package's two-key sort does; the front-most K entries of each tile run
-   form the [tiles, K] table, integer-for-integer the JAX package's;
+   form the [tiles, K] table, integer-for-integer the JAX package's. On
+   CUDA tensors steps 2-3 are the kernels of `csrc/tile_bin.cu`
+   (`tile_bin`), which emit and sort only the slots that hold a tile, as
+   32-bit keys; on CPU tensors the plain form keys every [N, C] slot;
 4. one gather pulls per-entry params into the channel-major [T, 10, K]
    layout (`gather_entries`);
 5. compositing: backend "cuda" runs the hand-written kernel
@@ -186,6 +189,30 @@ def compute_view_colors(
     return torch.clamp_min(rgb, 0.0)
 
 
+def _depth_bits(tiles_x: int, tiles_y: int) -> int:
+    """The fused key's depth bits: 32 less the bits of the image's tile ids
+    (the JAX package's u32 key); raises below 8."""
+    tile_bits = max(int(tiles_x * tiles_y + 1).bit_length(), 1)
+    if 32 - tile_bits < 8:
+        raise ValueError(f"too many tiles for fused sort key: {tiles_x * tiles_y}")
+    return 32 - tile_bits
+
+
+def _build_stats(clipped: torch.Tensor, runs: torch.Tensor, K: int) -> dict:
+    """The table build's truncation counters, 0-dim int32, from the count
+    of clipped splats and each tile's run before truncation."""
+    return {
+        # valid splats whose coverage exceeds C: trailing tiles skipped
+        "coverage_clipped_splats": clipped,
+        # tiles whose occupancy exceeded K: back-most splats dropped
+        "overflow_tiles": torch.sum(runs > K).to(torch.int32),
+        "dropped_entries": torch.sum(torch.clamp_min(runs - K, 0)).to(torch.int32),
+        "total_entries": torch.sum(runs).to(torch.int32),
+        # largest pre-truncation run: the K an exact render needs
+        "max_run": torch.max(runs).to(torch.int32),
+    }
+
+
 def _build_tile_table(
     means2d: torch.Tensor,
     radius: torch.Tensor,
@@ -198,7 +225,30 @@ def _build_tile_table(
     tiles_y_window: Optional[int] = None,
     with_stats: bool = False,
 ):
-    """Build the per-tile table [num_tiles, K] of depth-sorted ENTRY ids.
+    """Build the per-tile table [num_tiles, K] of depth-sorted ENTRY ids:
+    `tile_bin` (the kernels of `csrc/tile_bin.cu`) on CUDA tensors, the
+    plain form `_build_tile_table_plain` on CPU tensors. Both give the same
+    table, counts, order and counters, integer for integer; on CUDA
+    `sorted_entry` covers the emitted entries only and `live` is None (see
+    `tile_bin`). The rule reads the device only."""
+    build = tile_bin if means2d.device.type == "cuda" else _build_tile_table_plain
+    return build(means2d, radius, depth, valid, tiles_x, tiles_y, config,
+                 ty_offset=ty_offset, tiles_y_window=tiles_y_window, with_stats=with_stats)
+
+
+def _build_tile_table_plain(
+    means2d: torch.Tensor,
+    radius: torch.Tensor,
+    depth: torch.Tensor,
+    valid: torch.Tensor,
+    tiles_x: int,
+    tiles_y: int,
+    config: RasterizeConfig,
+    ty_offset: int = 0,
+    tiles_y_window: Optional[int] = None,
+    with_stats: bool = False,
+):
+    """The plain form of `_build_tile_table` over every [N, C] slot.
 
     Each splat emits up to C = max_tiles_per_splat entries (entry id
     splat_id * C + c); entries sort once by the fused key (tile id in the
@@ -218,7 +268,10 @@ def _build_tile_table(
     the rows are in descending-occupancy order (stable) and `order` [T]
     int32 is that permutation (row r = tile order[r]); on "torch" rows are
     in image order and `order` is None. build_stats is None unless
-    `with_stats`, else the truncation counters.
+    `with_stats`, else the truncation counters. While tracing is on it
+    adds the entries to the counter `raster.bin_entries` and N·C to
+    `raster.bin_slots` (a host read of the entries, so on a CUDA tensor
+    a synchronize).
     """
     n = means2d.shape[0]
     dev = means2d.device
@@ -265,10 +318,7 @@ def _build_tile_table(
 
     # Fused key in int64 (torch has no unsigned 32-bit sort); its value is
     # the JAX package's u32 key.
-    tile_bits = max(int(tiles_x * tiles_y + 1).bit_length(), 1)
-    depth_bits = 32 - tile_bits
-    if depth_bits < 8:
-        raise ValueError(f"too many tiles for fused sort key: {tiles_x * tiles_y}")
+    depth_bits = _depth_bits(tiles_x, tiles_y)
     dbits = (torch.clamp_min(depth, 0.0).to(torch.float32).view(torch.int32)
              .to(torch.int64) & 0xFFFFFFFF)
     key = (tile_id << depth_bits) | (dbits >> (32 - depth_bits))[:, None]
@@ -308,16 +358,10 @@ def _build_tile_table(
 
     build_stats = None
     if with_stats:
-        build_stats = {
-            # valid splats whose coverage exceeds C: trailing tiles skipped
-            "coverage_clipped_splats": torch.sum(valid & clipped).to(torch.int32),
-            # tiles whose occupancy exceeded K: back-most splats dropped
-            "overflow_tiles": torch.sum(runs > K).to(torch.int32),
-            "dropped_entries": torch.sum(torch.clamp_min(runs - K, 0)).to(torch.int32),
-            "total_entries": torch.sum(runs).to(torch.int32),
-            # largest pre-truncation run: the K an exact render needs
-            "max_run": torch.max(runs).to(torch.int32),
-        }
+        build_stats = _build_stats(torch.sum(valid & clipped).to(torch.int32), runs, K)
+    if profiling.enabled():
+        profiling.count("raster.bin_entries", int(torch.sum(runs)))
+        profiling.count("raster.bin_slots", E)
     return (
         table.to(torch.int32),
         sorted_entry.to(torch.int32),
@@ -326,6 +370,142 @@ def _build_tile_table(
         None if order is None else order.to(torch.int32),
         build_stats,
     )
+
+
+@functools.cache
+def _tile_bin_entry(name: str):
+    """A C entry point of csrc/tile_bin.cu (built on first use)."""
+    import ctypes
+
+    from gaussiansplattingregistration_tpu_torch.ops import _build
+
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    geometry = [i] * 7 + [f]      # tiles_x, tiles_y, ty_offset, window, C, s_eff, depth_bits, ts
+    fn = getattr(_build.library("tile_bin"), name)
+    fn.argtypes = {
+        "tile_bin_scan_bytes": [i],
+        "tile_bin_sort_bytes": [i],
+        "tile_bin_count": [p, p, p, i] + geometry + [p, p, p, p, ll, p],
+        "tile_bin_emit_sort": [p, p, p, i, p, i] + geometry + [p, i, p, p, p, ll, p],
+        "tile_bin_runs": [p, i, i, i, i, p, p, p, p],
+        "tile_bin_fill": [p, p, p, p, i, i, p, p],
+    }[name]
+    fn.restype = ll if name.endswith("_bytes") else i
+    return fn
+
+
+def _tile_bin_call(name: str, *args) -> int:
+    out = _tile_bin_entry(name)(*args)
+    if name.endswith("_bytes"):
+        if out < 0:
+            raise RuntimeError(f"{name} failed: cudaError {-out}")
+    elif out != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {out}")
+    return out
+
+
+def tile_bin(
+    means2d: torch.Tensor,
+    radius: torch.Tensor,
+    depth: torch.Tensor,
+    valid: torch.Tensor,
+    tiles_x: int,
+    tiles_y: int,
+    config: RasterizeConfig,
+    ty_offset: int = 0,
+    tiles_y_window: Optional[int] = None,
+    with_stats: bool = False,
+):
+    """`_build_tile_table` on the card by `csrc/tile_bin.cu`: only the slots
+    that hold a tile are emitted, in entry-id order, keyed as 32-bit
+    (tile | depth bits) keys, and sorted stably (see the source's note).
+
+    Takes means2d [N, 2] and radius [N] float32, depth [N] (any float
+    dtype, keyed as float32, as the plain form does) and valid [N] bool on
+    one CUDA device, N·C < 2^31; raises on anything else. Returns what
+    `_build_tile_table_plain` returns, the table, counts, order and
+    counters integer for integer, except that `sorted_entry` [E] int32
+    covers the E emitted entries only (the plain form's trailing run of
+    empty slots is never built) and `live` is None (the rasterizer reads
+    neither). One host read a call: the
+    entry count E, 4 bytes, which sizes the sort. Adds one to
+    `tile_bin.launches`, E to the counter `raster.bin_entries` and N·C to
+    `raster.bin_slots`."""
+    for name, x, ok in (("means2d", means2d, means2d.dtype == torch.float32),
+                        ("radius", radius, radius.dtype == torch.float32),
+                        ("depth", depth, depth.is_floating_point()),
+                        ("valid", valid, valid.dtype == torch.bool)):
+        if x.device.type != "cuda" or x.device != means2d.device:
+            raise ValueError(f"tile_bin needs CUDA tensors on one device, got {name} on "
+                             f"{x.device}")
+        if not ok:
+            raise ValueError(f"tile_bin: {name} of {x.dtype} is not taken")
+    n = means2d.shape[0]
+    if (tuple(means2d.shape) != (n, 2)
+            or any(tuple(x.shape) != (n,) for x in (radius, depth, valid))):
+        raise ValueError(f"tile_bin: means2d [N, 2] and radius, depth, valid [N], got "
+                         f"{tuple(means2d.shape)}, {tuple(radius.shape)}, "
+                         f"{tuple(depth.shape)}, {tuple(valid.shape)}")
+    C = config.max_tiles_per_splat
+    K = config.max_splats_per_tile
+    if n * C >= 1 << 31:
+        raise ValueError(f"tile_bin: N·C = {n * C} entry ids do not fit int32")
+    if tiles_y_window is None:
+        tiles_y_window = tiles_y
+    num_tiles = tiles_x * tiles_y_window
+    depth_bits = _depth_bits(tiles_x, tiles_y)
+    dev = means2d.device
+    means2d = means2d.detach().contiguous()
+    radius = radius.detach().contiguous()
+    depth = depth.detach().to(torch.float32)
+    valid = valid.contiguous()
+    geometry = (tiles_x, tiles_y, ty_offset, tiles_y_window, C, max(1, math.isqrt(C)),
+                depth_bits, float(config.tile_size))
+    i32 = functools.partial(torch.empty, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        counts_offsets = i32((2, n + 1))
+        clipped = torch.zeros((), dtype=torch.int32, device=dev) if with_stats else None
+        # cub's scratch: never a null pointer, which cub reads as a size query.
+        scratch = torch.empty(max(_tile_bin_call("tile_bin_scan_bytes", n), 1),
+                              dtype=torch.uint8, device=dev)
+        _tile_bin_call("tile_bin_count", means2d.data_ptr(), radius.data_ptr(),
+                       valid.data_ptr(), n, *geometry, counts_offsets[0].data_ptr(),
+                       counts_offsets[1].data_ptr(),
+                       None if clipped is None else clipped.data_ptr(),
+                       scratch.data_ptr(), scratch.numel(), stream)
+        E = int(counts_offsets[1, n])
+        # Emitted pairs in [0], sorted pairs in [1]: keys as u32 bits.
+        keys, ids = i32((2, E)), i32((2, E))
+        if E:
+            scratch = torch.empty(max(_tile_bin_call("tile_bin_sort_bytes", E), 1),
+                                  dtype=torch.uint8, device=dev)
+            _tile_bin_call("tile_bin_emit_sort", means2d.data_ptr(), radius.data_ptr(),
+                           depth.data_ptr(), depth.stride(0), valid.data_ptr(), n, *geometry,
+                           counts_offsets[1].data_ptr(), E, keys.data_ptr(), ids.data_ptr(),
+                           scratch.data_ptr(), scratch.numel(), stream)
+        starts_runs, counts = i32((2, num_tiles)), i32((num_tiles,))
+        _tile_bin_call("tile_bin_runs", keys[1].data_ptr(), E, num_tiles, depth_bits, K,
+                       starts_runs[0].data_ptr(), starts_runs[1].data_ptr(), counts.data_ptr(),
+                       stream)
+        order = None
+        if config.backend == "cuda":
+            # Occupancy order, stable, as the plain form's.
+            perm = torch.argsort(-counts, stable=True)
+            counts, order = counts[perm], perm.to(torch.int32)
+        table = i32((num_tiles, K))
+        _tile_bin_call("tile_bin_fill", ids[1].data_ptr(), starts_runs[0].data_ptr(),
+                       starts_runs[1].data_ptr(), None if order is None else order.data_ptr(),
+                       num_tiles, K, table.data_ptr(), stream)
+    tile_bin.launches += 1
+    profiling.count("raster.bin_entries", E)
+    profiling.count("raster.bin_slots", n * C)
+
+    build_stats = _build_stats(clipped, starts_runs[1], K) if with_stats else None
+    return table, ids[1], None, counts, order, build_stats
+
+
+tile_bin.launches = 0
 
 
 class _GatherEntries(torch.autograd.Function):

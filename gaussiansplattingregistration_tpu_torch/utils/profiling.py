@@ -201,6 +201,11 @@ class _Off:
 _OFF = _Off()
 
 
+def enabled() -> bool:
+    """Whether tracing is on: a profiler session records, or `recording()`."""
+    return bool(_TRACER.forced or _profiler_enabled())
+
+
 def span(name: str, request: Optional[int] = None):
     """A context manager marking a stage named `name`; `request` gives the
     request id of work that runs on another thread (see `request_id`)."""

@@ -169,7 +169,7 @@ def test_main_keeps_the_stdout_contract(monkeypatch, capsys, tmp_path):
     detail = head["detail"]
     assert set(detail) == STATS | TRUNCATION | {"card", "launches"}
     assert detail["card"] == "cpu"
-    assert detail["launches"] == {"composite_fwd": 0, "composite_bwd": 0}
+    assert detail["launches"] == {"composite_fwd": 0, "composite_bwd": 0, "tile_bin": 0}
     assert detail["truncation_psnr_db"] >= 40.0
     assert len(detail["truncation_psnr_per_view_db"]) == 3
     assert detail["bwd_cap_violations"] == 0 and detail["live_tile_overflow"] == 0
