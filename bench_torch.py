@@ -33,7 +33,6 @@ import argparse
 import dataclasses
 import json
 import math
-import subprocess
 import sys
 import time
 import traceback
@@ -43,12 +42,10 @@ import torch
 
 from gaussiansplattingregistration_tpu_torch.models import parameters as P
 from gaussiansplattingregistration_tpu_torch.models.camera import Camera
-from gaussiansplattingregistration_tpu_torch.models.gaussian_cloud import GaussianCloud
-from gaussiansplattingregistration_tpu_torch.models.point_cloud import PointCloud
 from gaussiansplattingregistration_tpu_torch.ops import global_registration as gr
 from gaussiansplattingregistration_tpu_torch.ops import hem as hem_ops
 from gaussiansplattingregistration_tpu_torch.ops import icp as icp_ops
-from gaussiansplattingregistration_tpu_torch.ops import math3d, raster_cuda, se3
+from gaussiansplattingregistration_tpu_torch.ops import math3d, raster_cuda
 from gaussiansplattingregistration_tpu_torch.ops.rasterize import (
     RasterizeConfig,
     rasterize_arrays,
@@ -60,6 +57,19 @@ from gaussiansplattingregistration_tpu_torch.pipelines.multiscale import (
     multiscale_mixture_registration,
 )
 from gaussiansplattingregistration_tpu_torch.utils.device import resolve_device
+from port_scenes import (
+    card_line,
+    clustered_draws,
+    global_draws,
+    hem_cloud,
+    icp_draws,
+    photometric_camera,
+    photometric_cloud,
+    photometric_config,
+    point_cloud,
+    splat_arrays,
+    uniform_draws,
+)
 
 # An estimate of gsplat's fwd+bwd throughput on an H100 at 1M splats, not a
 # measurement (bench.py's denominator).
@@ -100,136 +110,6 @@ def _reset_launches():
     raster_cuda.composite_tiles.launches = 0
     raster_cuda.composite_tiles_bwd.launches = 0
     tile_bin.launches = 0
-
-
-def card_line(dev) -> str:
-    """The card's name and power limit as nvidia-smi prints them, or "cpu"."""
-    if dev.type != "cuda":
-        return "cpu"
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-
-
-# ---------------------------------------------------------------- scenes
-# bench.py's draws, in its order; chip_smoke.py draws its scenes from here.
-
-def uniform_draws(n):
-    """The headline scene (bench.py:57-71), numpy's default_rng(0): xyz,
-    scales, quats, opacity logits, features (SH degree 0). Sized so splats
-    are a few pixels across at 720p."""
-    rng = np.random.default_rng(0)
-    xyz = rng.uniform(-1, 1, size=(n, 3)).astype(np.float32)
-    scales = rng.uniform(0.002, 0.006, size=(n, 3)).astype(np.float32)
-    quats = rng.normal(size=(n, 4)).astype(np.float32)
-    logits = rng.normal(0.0, 1.0, size=n)
-    features = (rng.normal(size=(n, 1, 3)) * 0.3).astype(np.float32)
-    return xyz, scales, quats, logits, features
-
-
-def clustered_draws(n):
-    """The clustered scene (bench.py:205-224), default_rng(7): splats on
-    2000 cluster surfaces, log-uniform mixed scales, opaque fronts."""
-    rng = np.random.default_rng(7)
-    n_clusters = 2000
-    centers = rng.uniform(-1, 1, size=(n_clusters, 3)).astype(np.float32)
-    assign = rng.integers(0, n_clusters, size=n)
-    xyz = (centers[assign] + rng.normal(0, 0.045, size=(n, 3))).astype(np.float32)
-    scales = np.exp(rng.uniform(np.log(0.0015), np.log(0.012), size=(n, 3))).astype(np.float32)
-    quats = rng.normal(size=(n, 4)).astype(np.float32)
-    logits = rng.normal(1.2, 0.8, size=n)
-    features = (rng.normal(size=(n, 1, 3)) * 0.3).astype(np.float32)
-    return xyz, scales, quats, logits, features
-
-
-def splat_arrays(draws, dev):
-    """(means, cov3d, opacity, features) on `dev` from a scene's draws."""
-    xyz, scales, quats, logits, features = draws
-    opacity = (1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
-    cov = math3d.covariance_from_scaling_rotation(
-        torch.as_tensor(scales, device=dev), torch.as_tensor(quats, device=dev))
-    return (torch.as_tensor(xyz, device=dev), cov, torch.as_tensor(opacity, device=dev),
-            torch.as_tensor(features, device=dev))
-
-
-def two_clouds(rng, n, offset=(0.08, -0.05, 0.04), angle=0.06, colors=False):
-    """bench.py's `_two_clouds` draws as numpy: a wavy surface `tgt`, its
-    copy `src` = R tgt + offset (R about z by `angle`), colors or None, and
-    the 4x4 T_src with src = T_src tgt."""
-    pts = rng.uniform(-1.0, 1.0, size=(n, 3)).astype(np.float32)
-    pts[:, 2] = 0.3 * np.sin(3.0 * pts[:, 0]) + 0.2 * np.cos(2.0 * pts[:, 1])
-    pts[:, 2] += 0.01 * rng.normal(size=n).astype(np.float32)
-    c, s = math.cos(angle), math.sin(angle)
-    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
-    src = pts @ R.T + np.asarray(offset, np.float32)
-    col = (0.5 + 0.5 * np.sin(5.0 * pts)).astype(np.float32) if colors else None
-    T_src = np.eye(4)
-    T_src[:3, :3], T_src[:3, 3] = R, offset
-    return src, pts, col, T_src
-
-
-def random_cloud(rng, n, sh_degree, scale_range, dev):
-    """tests/scene_utils.py's `make_random_cloud` draws, as a port cloud."""
-    k_rest = (sh_degree + 1) ** 2 - 1
-    quats = rng.normal(size=(n, 4))
-    return GaussianCloud.create(
-        xyz=rng.normal(size=(n, 3)).astype(np.float32),
-        features_dc=rng.normal(size=(n, 1, 3)).astype(np.float32) * 0.5,
-        features_rest=rng.normal(size=(n, k_rest, 3)).astype(np.float32) * 0.1,
-        opacity=rng.normal(size=(n, 1)).astype(np.float32),
-        scaling=np.log(rng.uniform(*scale_range, size=(n, 3))).astype(np.float32),
-        rotation=quats.astype(np.float32),
-        sh_degree=sh_degree, device=dev,
-    )
-
-
-def point_cloud(points, colors=None, dev="cuda"):
-    return PointCloud(points=torch.as_tensor(points, device=dev),
-                      colors=None if colors is None else torch.as_tensor(colors, device=dev))
-
-
-def icp_draws(n):
-    """Config 1's clouds (bench.py:302-303, 320-322), default_rng(1): the
-    surface pair of `two_clouds` (src, tgt, T_src), then a volumetric cloud
-    `vol` and its copy `vol_src` = T_vol vol."""
-    rng = np.random.default_rng(1)
-    src, tgt, _, T_src = two_clouds(rng, n)
-    vol = rng.uniform(-1, 1, size=(n, 3)).astype(np.float32)
-    T_vol = se3.se3_exp(torch.tensor([0.01, -0.02, 0.01, 0.03, -0.02, 0.01])).numpy()
-    vol_src = (vol @ T_vol[:3, :3].T + T_vol[:3, 3]).astype(np.float32)
-    return src, tgt, T_src, vol_src, vol, T_vol
-
-
-def global_draws(n):
-    """Config 2's colored pair (bench.py:362-363), default_rng(2): src,
-    tgt, colors, T_src as `two_clouds` returns them."""
-    return two_clouds(np.random.default_rng(2), n, offset=(0.3, -0.2, 0.15), angle=0.4,
-                      colors=True)
-
-
-def hem_cloud(n, dev):
-    """Config 3's splats (bench.py:416-427), default_rng(3): SH degree 1,
-    scales 0.04-0.10."""
-    return random_cloud(np.random.default_rng(3), n, 1, (0.04, 0.10), dev)
-
-
-def photometric_cloud(n, dev):
-    """Config 5's splats (bench.py:509-511), default_rng(4): SH degree 1,
-    scales 0.005-0.02."""
-    return random_cloud(np.random.default_rng(4), n, 1, (0.005, 0.02), dev)
-
-
-def photometric_camera(dev, position=(0.0, 0.0, 3.0)):
-    """Config 5's camera: PHOTO_WIDTH x PHOTO_HEIGHT at 70°, looking down z."""
-    f = PHOTO_WIDTH / (2 * math.tan(math.radians(70) / 2))
-    return Camera.create(np.eye(3), list(position), f, f, PHOTO_WIDTH, PHOTO_HEIGHT, device=dev)
-
-
-def photometric_config():
-    """Config 5's rasterizer config (bench.py:514-517) on backend "cuda"."""
-    return RasterizeConfig(max_tiles_per_splat=4, max_splats_per_tile=256, tile_chunk=32,
-                           max_bwd_splats_per_tile=256, backend="cuda")
 
 
 # --------------------------------------------------------- the headline
@@ -541,7 +421,7 @@ def bench_photometric(dev):
     """Config 5: differentiable photometric pose-opt steps/s, one camera
     (the sharded variant is parallel/train_step.py)."""
     cloud = photometric_cloud(PHOTO_SPLATS, dev)
-    cams = [photometric_camera(dev)]
+    cams = [photometric_camera(dev, width=PHOTO_WIDTH, height=PHOTO_HEIGHT)]
     config = photometric_config()
     targets = photometric.render_targets(cloud, cams, config=config, device=dev)
 

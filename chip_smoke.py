@@ -1,20 +1,18 @@
 """On-card smoke check of the PyTorch/CUDA port.
 
-Builds every CUDA kernel of the port from the checkout, holds each against
-its plain-torch twin on the card (on seeded tiles, on adversarial tiles that
-probe the kernels' footprint culling, and at the bench frame's shapes; the
-backward launched twice must give the same bits) and the culling boxes
-the card computes against their plain formula, and the tile-binning kernels
-(csrc/tile_bin.cu) against the plain form at the shapes of the two
-configurations that bin and of this script's main paths (`tile_bin_check`,
-with their times), drives the port's main paths at the bench
-scene's full width (1M splats at 1280x720): the forward render, the
-gradients of the whole rasterizer against the plain-torch backend,
-fwd+bwd timing, and photometric pose refinement; then the `render` and
-`photometric` CLI. Then the registration path at bench.py's sizes (plain
-torch on the card, but the brute neighbor search, which runs
-csrc/knn_brute.cu): neighbor search at 100k points against the CPU and the
-kNN kernel against its plain form at the registration cell's shapes, ICP
+Builds every CUDA kernel of the port from the checkout, then runs the card
+tests that hold each kernel to its plain form (the composite kernels, their
+footprint culling, the kNN kernel and the tile binning; `CARD_TESTS`, in a
+pytest subprocess) and times the tile binning at the frames of the two
+configurations that bin and of this script's main paths. Then it drives
+the port's main paths at the bench scene's full width (1M splats at
+1280x720): the forward render, the composite kernels against their twins
+on the bench frame, the gradients of the whole rasterizer against the
+plain-torch backend, fwd+bwd timing, and photometric pose refinement; then
+the `render` and `photometric` CLI. Then the registration path at
+bench.py's sizes (plain torch on the card, but the brute neighbor search,
+which runs csrc/knn_brute.cu): neighbor search at 100k points against the
+CPU and the kNN kernel's times at the registration cell's shapes, ICP
 (config 1, brute and grid), HEM (config 3, 200k splats) and the mixture
 multiscale registration on its levels, and tests/test_e2e_cli.py's flow
 through the port's CLI, whose evaluation is driven once more in this
@@ -29,9 +27,9 @@ processes of this script (`--rank-worker`) on bench.py config 5's scene,
 and `evaluate --sharded on` against `--sharded off`. Then bench_torch.py,
 the port's benchmark runner, in a subprocess (its gates held, its five
 metrics published), and both kernels against their twins on its config
-5's frame. The scenes are bench_torch.py's draws. It prints one JSON
-line per phase. The last lines are the `kernels` record (one entry per
-kernel and main path), the card's name and power limit, and
+5's frame. The scenes are port_scenes.py's. It prints one JSON line per
+phase. The last lines are the `kernels` record (one entry per kernel and
+main path), the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one GPU
@@ -46,58 +44,65 @@ import contextlib
 import dataclasses
 import functools
 import json
-import math
 import os
-import struct
+import re
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 import numpy as np
 import torch
 
-from bench_torch import (
+from port_scenes import (
+    HEIGHT,
+    N_SPLATS,
+    WIDTH,
+    bench_camera,
+    bench_cloud,
+    bench_config,
+    bench_scene,
     card_line,
+    check_bwd,
+    check_png,
+    config5_frame,
+    config5_scene,
+    demo_photometric_views,
+    frame_args,
     global_draws,
     hem_cloud,
     icp_draws,
-    photometric_camera,
-    photometric_cloud,
-    photometric_config,
+    kernel_inputs,
+    knn_kernel_cases,
+    load_json,
+    max_errs,
+    pair_counts,
     point_cloud,
+    pose_err_parts,
+    pose_error,
     random_cloud,
-    splat_arrays,
+    sharded_step_camera,
+    sqdist_rows,
+    tile_bin_cells,
     two_clouds,
-    uniform_draws,
 )
+from splatbench.roofline.composite import OPS_TEST, OPS_VISIBLE_BWD, OPS_VISIBLE_FWD, peaks
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-# H100 SXM published peaks (NVIDIA data sheet, dense): FP32 outside the
-# tensor cores, and HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# FP32 operations per (pixel, entry) pair, counted once from the kernels'
-# formulas (csrc/composite_fwd.cu, csrc/composite_bwd.cu), an FMA as two and
-# an exp, a division, a compare or a select as one. A pair that is composited
-# needs the visibility test: dx and dy (2), sigma (9), its clamp at 0 and the
-# exp (2), raw alpha and the alpha_max clamp (2), the alpha_clip, sigma and T
-# tests (3). The bounds charge the whole formula to the visible pairs only:
-# how many invisible pairs a kernel still tests depends on its design (the
-# culled kernels test the `candidate` pairs). A bound that charges the test
-# to every alive pair is still printed, as `alive_ops_bound_ms`.
-OPS_TEST = 18
-# A pair the forward composites (visible) adds in the forward: w (1), the
-# transmittance update (2), the alpha, rgb and depth sums (9).
-OPS_VISIBLE_FWD = 12
-# ... and in the backward: w (1), the transmittance update (2), dL/dw (8),
-# prefix and suffix (3), dL/dalpha (4), the alpha_max and sigma masks (4),
-# the ten per-entry values (23), their pixel sums (10).
-OPS_VISIBLE_BWD = 55
+# H100 SXM published peaks (splatbench/roofline/peaks.json): FP32 outside
+# the tensor cores, and HBM3 bandwidth. The bounds charge the compositor's
+# whole formula (`OPS_*`, counted in splatbench/roofline/composite.py) to the
+# visible pairs only: how many invisible pairs a kernel still tests depends
+# on its design (the culled kernels test the `candidate` pairs). A bound
+# that charges the test to every alive pair is still printed, as
+# `alive_ops_bound_ms`.
+H100 = peaks("NVIDIA H100 80GB HBM3")
+PEAK_FP32_FLOPS = H100["fp32_flops"]
+PEAK_BYTES_PER_S = H100["hbm_bytes_per_s"]
+# The card tests that hold each kernel to its plain form, run first.
+CARD_TESTS = ("tests/test_torch_tile_bin.py", "tests/test_torch_composite_kernels.py",
+              "tests/test_torch_knn_kernel.py")
 
-# Bench scene and config (bench.py): 1M splats, SH degree 0, 1280x720, 70°.
-WIDTH, HEIGHT, N_SPLATS = 1280, 720, 1_000_000
 # Sizes of the registration phases: HEM's splats (bench.py config 3), the
 # user-scale global registration surface, the 1M-point planar scene's planes
 # and noise, and each plane of the merging scene (its noise a fifth of it).
@@ -147,348 +152,6 @@ def kernel_device_ms(fn, kernel: str, iters: int = 20) -> float:
     return evs[0].self_device_time_total / evs[0].count / 1e3
 
 
-def max_errs(got, want):
-    """Max abs error of (rgb, alpha, depth) and whether `live` is equal."""
-    errs = [float((a - b).abs().max()) if a.numel() else 0.0
-            for a, b in zip(got[:3], want[:3])]
-    return errs, bool(torch.equal(got[3], want[3]))
-
-
-def random_tiles(rng, counts, K: int, device):
-    """Seeded [T, 10, K] tile params shaped like the gather's output: slots
-    past counts[t] are zero. Every fourth tile holds large splats of opacity
-    0.998-1 centred within 0.05 px of a pixel centre, so its pixels saturate
-    within the first chunk and some raw alphas reach alpha_max (0.999): the
-    backward's clamp branch."""
-    T = len(counts)
-    big = (np.arange(T) % 4 == 0)[:, None]
-    var_x = np.where(big, rng.uniform(40, 200, (T, K)), rng.uniform(0.5, 30, (T, K)))
-    var_y = np.where(big, rng.uniform(40, 200, (T, K)), rng.uniform(0.5, 30, (T, K)))
-    cov_xy = rng.uniform(-0.7, 0.7, (T, K)) * np.sqrt(var_x * var_y)
-    det = var_x * var_y - cov_xy ** 2
-    mx, my = rng.uniform(-4, 20, (T, K)), rng.uniform(-4, 20, (T, K))
-    centred = rng.uniform(-0.05, 0.05, (2, T, K))
-    g = np.stack([
-        np.where(big, np.floor(mx) + 0.5 + centred[0], mx),
-        np.where(big, np.floor(my) + 0.5 + centred[1], my),
-        var_y / det, -cov_xy / det, var_x / det,
-        np.where(big, rng.uniform(0.998, 1.0, (T, K)), rng.uniform(0.05, 0.95, (T, K))),
-        rng.uniform(0, 1, (T, K)), rng.uniform(0, 1, (T, K)), rng.uniform(0, 1, (T, K)),
-        rng.uniform(1, 5, (T, K)),
-    ], axis=1)
-    g *= (np.arange(K)[None, :] < np.asarray(counts)[:, None])[:, None, :]
-    cnt = torch.tensor(counts, dtype=torch.float32, device=device)[:, None]
-    return torch.tensor(g, dtype=torch.float32, device=device), cnt
-
-
-def adversarial_tiles(rng, offsets, device, K: int = 64):
-    """[16, 10, K] tiles that probe the kernels' footprint culling
-    (csrc/tile_footprint.cuh), four tiles of each kind:
-    0-3  each entry puts one pixel centre at sigma = s_max (1 + r), with
-         s_max = ln(op / alpha_clip) the visibility edge and r cycling
-         through `offsets`; every eighth conic a needle (|corr| 0.995);
-    4-7  opacity at alpha_clip, one f32 step below and one above, the mean
-         on a pixel centre;
-    8-11 conics that are not positive definite (indefinite, a < 0, a = b = 0,
-         det = 0, negative definite), means off the grid so that no pixel
-         centre has |sigma| < 1e-3;
-    12-15 means off the tile with footprints reaching in, half of them with
-         an edge pixel at the visibility edge.
-    Counts are K, except tile 1 (40) and tile 13 (17); slots past them are
-    zero. Returns (gT, counts [16, 1]) on `device`."""
-    f32 = np.float32
-    clip = f32(1.0 / 255.0)
-    centres = np.stack(np.meshgrid(np.arange(16) + 0.5, np.arange(16) + 0.5), -1).reshape(-1, 2)
-
-    def pd_conic(lo, hi, corr):
-        vx, vy = rng.uniform(lo, hi, 2)
-        cov = corr * np.sqrt(vx * vy)
-        det = vx * vy - cov * cov
-        return vy / det, -cov / det, vx / det
-
-    def sigma(mean, a, b, c):
-        d = centres - np.asarray(mean, np.float64)
-        return 0.5 * (a * d[:, 0] ** 2 + c * d[:, 1] ** 2) + b * d[:, 0] * d[:, 1]
-
-    def at_edge(pixel, u, a, b, c, op, r):
-        """The mean at which `pixel` sits at sigma = s_max (1 + r) along u."""
-        a, b, c, op = (float(f32(v)) for v in (a, b, c, op))
-        s = np.log(op / float(clip))
-        q = 0.5 * (a * u[0] ** 2 + 2 * b * u[0] * u[1] + c * u[1] ** 2)
-        return np.asarray(pixel) + np.sqrt(s * (1 + r) / q) * np.asarray(u)
-
-    rows = []
-    for t in range(16):
-        kind = t // 4
-        for k in range(K):
-            if kind == 0:
-                corr = rng.choice([-0.995, 0.995]) if k % 8 == 0 else rng.uniform(-0.9, 0.9)
-                a, b, c = pd_conic(0.5, 30, corr)
-                op = rng.uniform(0.05, 0.5)
-                th = rng.uniform(0, 2 * np.pi)
-                mean = at_edge(centres[rng.integers(256)], (np.cos(th), np.sin(th)),
-                               a, b, c, op, offsets[k % len(offsets)])
-            elif kind == 1:
-                a, b, c = pd_conic(0.5, 30, rng.uniform(-0.9, 0.9))
-                op = (clip, np.nextafter(clip, f32(0)), np.nextafter(clip, f32(1)))[k % 3]
-                mean = centres[rng.integers(256)]
-            elif kind == 2:
-                op = rng.uniform(0.2, 0.6)
-                while True:
-                    form = k % 5
-                    a, c = rng.uniform(0.05, 1.0, 2)
-                    if form == 0:
-                        b = rng.choice([-1, 1]) * rng.uniform(1.2, 2.0) * np.sqrt(a * c)
-                    elif form == 1:
-                        a, b = -a, rng.uniform(-0.3, 0.3)
-                    elif form == 2:
-                        a, b = 0.0, 0.0
-                    elif form == 3:
-                        a = c
-                        b = a
-                    else:
-                        a, c, b = -a, -c, 0.0
-                    mean = rng.uniform(0, 16, 2)
-                    a, b, c = float(f32(a)), float(f32(b)), float(f32(c))
-                    if np.abs(sigma(f32(mean), a, b, c)).min() > 1e-3:
-                        break
-            else:
-                a, b, c = pd_conic(20, 300, rng.uniform(-0.8, 0.8))
-                op = rng.uniform(0.2, 0.9)
-                side = rng.integers(4)
-                normal = ((-1, 0), (1, 0), (0, -1), (0, 1))[side]
-                if k % 2:
-                    along = rng.uniform(0, 16)
-                    depth_out = rng.uniform(1, 30)
-                    mean = {0: (-depth_out, along), 1: (16 + depth_out, along),
-                            2: (along, -depth_out), 3: (along, 16 + depth_out)}[side]
-                else:
-                    i = rng.integers(16) + 0.5
-                    pixel = {0: (0.5, i), 1: (15.5, i), 2: (i, 0.5), 3: (i, 15.5)}[side]
-                    th = np.arctan2(normal[1], normal[0]) + rng.uniform(-1, 1)
-                    mean = at_edge(pixel, (np.cos(th), np.sin(th)), a, b, c, op,
-                                   offsets[(k // 2) % len(offsets)])
-            rows.append([mean[0], mean[1], a, b, c, op, *rng.uniform(0, 1, 3),
-                         rng.uniform(1, 5)])
-    g = np.ascontiguousarray(np.asarray(rows, np.float64).reshape(16, K, 10)
-                             .transpose(0, 2, 1), dtype=np.float32)
-    counts = np.full(16, K)
-    counts[1], counts[13] = 40, 17
-    g *= (np.arange(K)[None, :] < counts[:, None])[:, None, :]
-    cnt = torch.tensor(counts, dtype=torch.float32, device=device)[:, None]
-    return torch.tensor(g, device=device), cnt
-
-
-def footprint_check(dev) -> dict:
-    """The culling boxes the card computes (csrc/tile_footprint.cuh, read
-    back through `raster_cuda.footprint_boxes`) on adversarial tiles whose
-    boundary pixels sit 1e-6 inside, on and 1e-6 outside the visibility
-    edge: equal to the plain formula's boxes rounded outward to f32 within
-    one f32 step (the margin is ~1e-3 of an extent, so a header without it
-    is caught), with the same infinite edges; and every pair the twin's math
-    on the card finds visible inside its entry's box and on its warp's list.
-    Raises on a mismatch."""
-    from gaussiansplattingregistration_tpu_torch.ops import raster_cuda as RC
-    from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig
-
-    cfg = RasterizeConfig()
-    gT, cnt = adversarial_tiles(np.random.default_rng(5), (-1e-6, 0.0, 1e-6), dev)
-    card = RC.footprint_boxes(gT, cfg)
-    torch.cuda.synchronize()
-    want = RC.footprint_boxes(gT.cpu(), cfg)
-    got = card.cpu()
-    finite = torch.isfinite(want)
-    same_inf = bool(torch.equal(torch.isfinite(got), finite)
-                    and torch.equal(got[~finite], want[~finite]))
-    step = torch.from_numpy(np.spacing(np.abs(want.numpy()))).double()
-    steps_off = float(((got.double() - want.double()).abs() / step)[finite & torch.isfinite(got)]
-                      .max())
-    px, py = RC._pixel_centres(16, gT)
-    _, in_count = RC._in_count(cnt, gT.shape[0], gT.shape[2], dev)
-    _, _, sigma, _, _, alpha = RC._chunk_terms(gT, px, py, in_count, cfg)
-    vis = alpha > 0
-    b = card.double()
-    inside = ((b[:, None, 0] <= px) & (px <= b[:, None, 1])
-              & (b[:, None, 2] <= py) & (py <= b[:, None, 3]))
-    outside = int((vis & ~inside).sum())
-    unlisted = int((vis & ~RC.warp_candidates(b, 16)).sum())
-    edge = torch.log(gT[:, None, 5, :].double() / float(np.float32(cfg.alpha_clip)))
-    near_edge = int((vis & ((sigma.double() / edge - 1).abs() < 1e-5)).sum())
-    rec = {"boxes": int(finite[:, 0].numel()), "finite_boxes": int(finite[:, 0].sum()),
-           "max_f32_steps_off": steps_off, "infinite_edges_equal": same_inf,
-           "visible_pairs": int(vis.sum()), "visible_within_1e-5_of_edge": near_edge,
-           "visible_outside_box": outside, "visible_off_warp_list": unlisted}
-    if not (same_inf and steps_off <= 1.0 and outside == 0 and unlisted == 0 and near_edge):
-        raise AssertionError(f"the card's culling boxes disagree with the formula: {rec}")
-    return rec
-
-
-def check_png(path: str, width: int, height: int) -> None:
-    """Signature, IHDR size and the IDAT payload length of an 8-bit RGB PNG."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError(f"{path}: not a PNG")
-    w, h, depth, ctype = struct.unpack(">IIBB", data[16:26])
-    if (w, h, depth, ctype) != (width, height, 8, 2):
-        raise AssertionError(f"{path}: IHDR {w}x{h} depth {depth} type {ctype}")
-    pos, idat = 8, b""
-    while pos < len(data):
-        (length,) = struct.unpack(">I", data[pos:pos + 4])
-        if data[pos + 4:pos + 8] == b"IDAT":
-            idat += data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-    if len(zlib.decompress(idat)) != h * (1 + 3 * w):
-        raise AssertionError(f"{path}: IDAT payload has the wrong size")
-
-
-def demo_photometric_views(out_dir: str, size: int, device):
-    """tests/test_e2e_cli.py's photometric scenario for the port's CLI: the
-    demo pair merged under its true transform, rendered from three spread
-    views at size x size into `out_dir`/view<i>.png with a 3DGS
-    cameras.json. Returns (cameras.json path, init transform path, T_offset):
-    the init is the true pose inv(T_offset) perturbed by a twist of norm
-    ~0.02."""
-    from gaussiansplattingregistration_tpu_torch.models.camera import Camera, look_at
-    from gaussiansplattingregistration_tpu_torch.ops import se3
-    from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
-    from gaussiansplattingregistration_tpu_torch.utils import io as gio
-    from gaussiansplattingregistration_tpu_torch.utils.png import write_png
-
-    data = os.path.join(REPO, "tests", "data")
-    with open(os.path.join(data, "demo_transform.json")) as fh:
-        T_off = np.asarray(json.load(fh)["T_offset"], np.float64)
-    source = gio.load_gaussian_cloud(os.path.join(data, "demo_source.ply"), device=device)
-    target = gio.load_gaussian_cloud(os.path.join(data, "demo_target.ply"), device=device)
-    scene = source.merge(target, np.linalg.inv(T_off))
-    f = size / (2 * math.tan(math.radians(60) / 2))
-    entries = []
-    for i, eye in enumerate(((2.2, 1.4, 2.6), (-2.0, 0.8, 2.9), (0.4, -2.1, 2.7))):
-        V = look_at(eye, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), zoom=float(np.linalg.norm(eye)),
-                    forward="+z", device=device)
-        cam = Camera.create(np.eye(3), np.zeros(3), f, f, size, size, device=device,
-                            image_name=f"view{i}").with_viewmat(V)
-        rgb, alpha, _ = rasterize(scene, cam, config=RasterizeConfig(), device=device)
-        if not float(alpha.mean()) > 0.05:
-            raise AssertionError(f"view {i} of the demo scene is nearly empty")
-        write_png(os.path.join(out_dir, f"view{i}.png"),
-                  (np.clip(rgb.cpu().numpy(), 0, 1) * 255).astype(np.uint8))
-        c2w = np.linalg.inv(V.cpu().numpy().astype(np.float64))
-        entries.append({"img_name": f"view{i}", "width": size, "height": size,
-                        "fx": f, "fy": f, "rotation": c2w[:3, :3].tolist(),
-                        "position": c2w[:3, 3].tolist()})
-    cams_json = os.path.join(out_dir, "cameras.json")
-    with open(cams_json, "w") as fh:
-        json.dump(entries, fh)
-    xi = torch.tensor([0.01, -0.008, 0.006, 0.008, -0.006, 0.01], dtype=torch.float64)
-    init = se3.se3_exp(xi).numpy() @ np.linalg.inv(T_off)
-    init_json = os.path.join(out_dir, "init.json")
-    with open(init_json, "w") as fh:
-        json.dump({"transformation": init.tolist()}, fh)
-    return cams_json, init_json, T_off
-
-
-def pose_error(T_est, T_off) -> float:
-    """|se3_log(T_est @ T_offset)|: zero when T_est == inv(T_offset)."""
-    from gaussiansplattingregistration_tpu_torch.ops import se3
-
-    residual = torch.as_tensor(np.asarray(T_est) @ np.asarray(T_off), dtype=torch.float32)
-    return float(torch.linalg.norm(se3.se3_log(residual)))
-
-
-def bench_camera(dev):
-    from gaussiansplattingregistration_tpu_torch.models.camera import Camera
-
-    f = WIDTH / (2 * math.tan(math.radians(70) / 2))
-    return Camera.create(np.eye(3), [0.0, 0.0, 3.0], f, f, WIDTH, HEIGHT, device=dev)
-
-
-def bench_config():
-    from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig
-
-    return RasterizeConfig(max_tiles_per_splat=4, max_splats_per_tile=384,
-                           tile_chunk=32, max_live_tiles=2688, backend="cuda")
-
-
-def bench_scene(dev):
-    """The bench scene (bench.py) on `dev`: (rasterize_arrays arguments,
-    config)."""
-    cam = bench_camera(dev)
-    args = (*splat_arrays(uniform_draws(N_SPLATS), dev), cam.viewmat, cam.intrinsics,
-            WIDTH, HEIGHT, 0, torch.zeros(3, device=dev))
-    return args, bench_config()
-
-
-def bench_cloud(dev):
-    """The bench scene's splats as a GaussianCloud (the same draws)."""
-    from gaussiansplattingregistration_tpu_torch.models.gaussian_cloud import GaussianCloud
-
-    xyz, scales, quats, logits, features = uniform_draws(N_SPLATS)
-    return GaussianCloud.create(xyz, features, np.zeros((N_SPLATS, 0, 3), np.float32),
-                                logits, np.log(scales), quats, sh_degree=0, device=dev)
-
-
-def kernel_inputs(args, cfg):
-    """The composite kernel's inputs for the frame of `args`, built as
-    rasterize_tile_slab builds them, with the stage intermediates."""
-    from gaussiansplattingregistration_tpu_torch.ops import rasterize as R
-
-    means, cov, op, feats, viewmat, intr, W, H, deg, _ = args
-    ts = cfg.tile_size
-    tiles_x, tiles_y = -(-W // ts), -(-H // ts)
-    T_live = R._row_cap(cfg, tiles_x * tiles_y)
-    cam_center = -(viewmat[:3, :3].T @ viewmat[:3, 3])
-    proj = R.project_gaussians(means, cov, viewmat, intr, W, H, cfg)
-    colors = R.compute_view_colors(feats, means, cam_center, deg)
-    table, _, _, counts, order, _ = R._build_tile_table(
-        proj["means2d"], proj["radius"], proj["depth"], proj["valid"],
-        tiles_x, tiles_y, cfg)
-    packed = torch.cat([proj["means2d"], proj["conic"], (op * proj["valid"])[:, None],
-                        colors, proj["depth"][:, None]], dim=-1)
-    gT = R.gather_entries(packed, table[:T_live], cfg.max_tiles_per_splat)
-    rows = order[:T_live].long()
-    gT[:, 0, :] -= ((rows % tiles_x) * ts).float()[:, None]
-    gT[:, 1, :] -= ((rows // tiles_x) * ts).float()[:, None]
-    return {"proj": proj, "cam_center": cam_center, "packed": packed, "table": table,
-            "T_live": T_live, "tiles": (tiles_x, tiles_y), "gT": gT,
-            "cnt": counts[:T_live, None].float()}
-
-
-def pair_counts(gT, cnt, ts: int, config, tiles_per_step: int = 256) -> dict:
-    """The compositor's data-dependent work on (gT, cnt), counted over
-    (pixel, entry) pairs with the entry inside its tile's count: `alive`,
-    the pixel's transmittance before the entry above transmittance_min;
-    `candidate`, alive pairs whose entry is on the list of the pixel's warp
-    (`raster_cuda.entry_footprints` and the kernels' warp layout): the pairs
-    the culled kernels test; `visible`, the pairs composited; `clamped`,
-    visible pairs whose raw alpha reaches alpha_max. The transmittance is
-    the forward twin's."""
-    from gaussiansplattingregistration_tpu_torch.ops import raster_cuda as RC
-
-    K, S = gT.shape[2], RC._CHUNK
-    px, py = RC._pixel_centres(ts, gT)
-    n = {"alive": 0, "candidate": 0, "visible": 0, "clamped": 0}
-    for t0 in range(0, gT.shape[0], tiles_per_step):
-        g = gT[t0:t0 + tiles_per_step]
-        _, in_count = RC._in_count(cnt[t0:t0 + tiles_per_step], g.shape[0], K, g.device)
-        listed = RC.warp_candidates(RC.entry_footprints(g, config), ts)   # [t, P, K]
-        carry = torch.ones((g.shape[0], ts * ts), dtype=g.dtype, device=g.device)
-        for c0 in range(0, K, S):
-            inc = in_count[:, c0:c0 + S]
-            *_, raw, alpha = RC._chunk_terms(g[:, :, c0:c0 + S], px, py, inc, config)
-            lt = torch.log1p(-alpha)
-            cum = torch.cumsum(lt, dim=2)
-            alive = (carry[:, :, None] * torch.exp(cum - lt) > config.transmittance_min) \
-                & inc[:, None, :]
-            visible = alive & (alpha > 0)
-            n["alive"] += int(alive.sum())
-            n["candidate"] += int((alive & listed[:, :, c0:c0 + S]).sum())
-            n["visible"] += int(visible.sum())
-            n["clamped"] += int((visible & (raw >= config.alpha_max)).sum())
-            carry = carry * torch.exp(cum[:, :, -1])
-    return n
-
-
 def fwd_bound(gT, cnt, out, ts: int, config) -> dict:
     """Least time for the forward kernel's work on (gT, cnt), whatever its
     design: the whole formula on this frame's visible pairs against reading
@@ -506,37 +169,6 @@ def fwd_bound(gT, cnt, out, ts: int, config) -> dict:
             "bytes": nbytes, "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
-
-
-def bwd_errs(got, want):
-    """Per channel of d_gT: max abs error and the twin's max abs."""
-    err = (got - want).abs().amax(dim=(0, 2))
-    scale = want.abs().amax(dim=(0, 2))
-    return err.tolist(), scale.tolist()
-
-
-def check_bwd(got, want, where: str) -> dict:
-    """The backward kernel within 1e-3 of each channel's max abs in the
-    twin: the JAX suite's gradient tolerance (tests/test_raster_pallas.py).
-    Pixel sums run in another order, and the kernel's suffix is a total
-    minus a prefix where the twin cumsums the chunk back to front."""
-    err, scale = bwd_errs(got, want)
-    if not all(e <= 1e-3 * s for e, s in zip(err, scale)):
-        raise AssertionError(f"composite_bwd disagrees with its twin ({where}): {err} vs {scale}")
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"composite_bwd is not finite ({where})")
-    return {"max_abs_err": err, "twin_max_abs": scale}
-
-
-def sqdist_rows(query, data, idx):
-    """[Q, k] squared distances of query i to data[idx[i, j]] on their
-    device, summed as the brute form sums them."""
-    nb = data[idx.reshape(-1)].reshape(*idx.shape, data.shape[1])
-    acc = None
-    for c in range(data.shape[1]):
-        term = torch.sub(query[:, None, c], nb[..., c]).square_()
-        acc = term if acc is None else acc.add_(term)
-    return acc
 
 
 def non_tie_mismatches(query, data, idx_a, idx_b) -> int:
@@ -594,183 +226,6 @@ def brute_launches(rec: dict, extra: int = 0):
         raise AssertionError(f"knn_brute launches on the registration path: {rec}")
 
 
-def knn_kernel_cases(dev) -> list:
-    """(name, query, data, k, timed) of the kNN kernel's checks on the card:
-    `reg200k_hem`'s shapes (HEM's level-0 search, 66.5k x 200k at k = 32;
-    the first level's normals and ICP, 68k x 68k at k = 30 and 1; the last
-    level's ICP, 8.7k x 8.7k at k = 1, which splits the data), k = 20 and
-    100, and the edges: N not a multiple of the staged chunk, k = N, fewer
-    queries than a warp, HEM's dead rows at 1e12 (exact ties), duplicated
-    points (exact ties at every rank) and D = 4. Points are uniform in a
-    4 x 3 x 2.5 room, in random order, as the cell's splats are."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(13)
-    room = torch.tensor([4.0, 3.0, 2.5], device=dev)
-
-    def pts(n, dim=3):
-        return torch.rand((n, dim), generator=g, device=dev) * (room if dim == 3 else 1.0)
-
-    def some(x, n):
-        return x[torch.randperm(x.shape[0], generator=g, device=dev)[:n]].contiguous()
-
-    lvl0, lvl1, lvl1_moved, lvl3 = pts(200_000), pts(68_000), pts(68_000), pts(8_700)
-    far = pts(5000)
-    far[torch.rand(5000, generator=g, device=dev) > 0.004] = 1e12    # ~20 alive rows
-    dup = pts(3000)
-    dup = torch.cat([dup, dup[:1500]])
-    mid = pts(20_000)
-    return [
-        ("hem_level0_k32", some(lvl0, 66_500), lvl0, 32, True),
-        ("normals_level1_k30", lvl1, lvl1, 30, True),
-        ("icp_level1_k1", lvl1_moved, lvl1, 1, True),
-        ("icp_level3_k1", pts(8_700), lvl3, 1, True),
-        ("k20", mid, mid, 20, False),
-        ("k100", some(mid, 5000), mid, 100, False),
-        ("n_not_chunk_multiple", pts(1000), pts(3 * 512 + 17), 32, False),
-        ("k_equals_n", pts(50), pts(100), 100, False),
-        ("q_below_warp_k30", pts(7), pts(5000), 30, False),
-        ("q_below_warp_k1", pts(7), pts(5000), 1, False),
-        ("dead_rows_1e12_k32", some(pts(5000), 300), far, 32, False),
-        ("dead_rows_1e12_k1", pts(300), far, 1, False),
-        ("duplicates_k32", some(dup, 1000), dup, 32, False),
-        ("duplicates_k1", some(dup, 1000), dup, 1, False),
-        ("d4_k20", pts(3000, 4), pts(4000, 4), 20, False),
-    ]
-
-
-def knn_kernel_check(dev) -> list:
-    """`knn_brute` (csrc/knn_brute.cu) against the plain form on the card,
-    through the public functions, on `knn_kernel_cases`: distances
-    bit-equal, indices equal but at exact ties, each row ascending by
-    (d2, index), the first rows equal to a stable sort of their whole
-    distance row, and a launch counted for each call; at the cell's shapes
-    also the kernel's and the plain form's ms and the bound."""
-    from gaussiansplattingregistration_tpu_torch.ops import knn
-
-    out = []
-    for name, q, d, k, timed in knn_kernel_cases(dev):
-        before = knn.knn_brute.launches
-        if k == 1:
-            run = functools.partial(knn.nearest_neighbor, q, d)
-            plain = functools.partial(knn._nearest_blocked, q, d, None)
-        else:
-            run = functools.partial(knn.knn, q, d, k)
-            plain = functools.partial(knn._knn_blocked, q, d, k, None)
-        d2, idx = (t.reshape(q.shape[0], k) for t in run())
-        launched = knn.knn_brute.launches - before
-        pd2, pidx = (t.reshape(q.shape[0], k) for t in plain())
-        acc, pacc = sqdist_rows(q, d, idx), sqdist_rows(q, d, pidx)
-        key_d, key_i = d2[:, 1:], idx[:, 1:]
-        ordered = bool(((d2[:, :-1] < key_d) | ((d2[:, :-1] == key_d) & (idx[:, :-1] < key_i)))
-                       .all())
-        rows = min(q.shape[0], max(1, (64 << 20) // (4 * d.shape[0])), 512)
-        full = knn._pairwise_sqdist(q[:rows], d)
-        want = torch.sort(full, dim=1, stable=True).indices[:, :k]
-        rec = {"case": name, "Q": q.shape[0], "N": d.shape[0], "D": q.shape[1], "k": k,
-               "launches": launched,
-               "d2_bit_equal": bool(torch.equal(d2.view(torch.int32), pd2.view(torch.int32))),
-               "d2_max_gap": float((d2 - pd2).abs().max()),
-               "d2_matches_indices": bool(torch.equal(acc.view(torch.int32),
-                                                      d2.view(torch.int32))),
-               "non_tie_mismatches": int(((idx != pidx) & (acc != pacc)).sum()),
-               "tie_mismatches": int(((idx != pidx) & (acc == pacc)).sum()),
-               "adjacent_ties": int((d2[:, :-1] == key_d).sum()),
-               "ascending_by_d2_index": ordered,
-               "stable_sort_rows": rows,
-               "stable_sort_equal": bool(torch.equal(idx[:rows], want))}
-        if timed:
-            iters = 3 if q.shape[0] * d.shape[0] > 5e9 else 10
-            rec["kernel_ms"] = cuda_ms(run, iters)
-            rec["plain_ms"] = cuda_ms(plain, 2, warmup=1)
-            rec["bound_ms"] = 1e3 * q.shape[0] * d.shape[0] * INSTR_PER_KNN_PAIR / PEAK_FP32_INSTR
-            rec["bound_share"] = rec["bound_ms"] / rec["kernel_ms"]
-            rec["gpairs_per_s"] = q.shape[0] * d.shape[0] / rec["kernel_ms"] / 1e6
-        out.append(rec)
-        if not (launched >= 1 and rec["d2_bit_equal"] and rec["d2_matches_indices"]
-                and rec["non_tie_mismatches"] == 0 and ordered and rec["stable_sort_equal"]):
-            raise AssertionError(f"knn_brute disagrees with the plain form: {rec}")
-    return out
-
-
-def tile_bin_args(name: str, means, cov, view, intr, width: int, height: int, cfg) -> tuple:
-    """(name, (means2d, radius, depth, valid), tiles_x, tiles_y, cfg): the
-    tile table's inputs of a frame, projected as the rasterizer projects
-    it."""
-    from gaussiansplattingregistration_tpu_torch.ops import rasterize as R
-
-    proj = R.project_gaussians(means, cov, view, intr, width, height, cfg)
-    ts = cfg.tile_size
-    return (name, tuple(proj[k] for k in TABLE_INPUTS), -(-width // ts), -(-height // ts), cfg)
-
-
-def tile_bin_cells(dev, seed: int = 123) -> list:
-    """`tile_bin_args` of the tile table at the shapes of the two
-    configurations that bin (splatbench's draws of `seed`):
-    `photo_pair_step`'s first view (yaw 0 of the pair of 1.1M-splat room
-    captures, 1557x1038, C=36, K=3072) and `splat1m_train` /
-    `splat1m_view`'s first frame (1M splats, 1280x720, C=4, K=512,
-    `max_live_tiles` 2688); then at the inputs of this script's main paths:
-    the bench frame at `bench_config()` (the photometric, render and grad
-    phases' frame, whose plain-backend comparisons bin on the card too)
-    and config 5's first camera (`config5_scene`)."""
-    from splatbench import scenes
-    from splatbench.drivers.photometric import look_at_views
-    from splatbench.drivers.raster import _port_config
-    from splatbench.reference import raster as ref_raster
-
-    def binned(name, means, cov, view, intr, width, height, rz):
-        return tile_bin_args(name, means, cov, view, intr, width, height,
-                             _port_config(rz, None))
-
-    photo = load_json(os.path.join(REPO, "splatbench", "configs", "photo_pair1m_sh3_1557.json"))
-    pair = [scenes.reg_scene(photo["scene"], photo["splats"], s, dev) for s in (seed, seed + 1)]
-    means = torch.cat([p["xyz"] for p in pair])
-    cov = torch.cat([p["covariance"] for p in pair])
-    del pair
-    cams = photo["cameras"]
-    out = [binned("photo_pair_step_view", means, cov, *look_at_views(cams, dev)[0],
-                  int(cams["width"]), int(cams["height"]), photo["rasterizer"])]
-    del means, cov
-    splat = load_json(os.path.join(REPO, "splatbench", "configs", "splat1m_sh3_720p.json"))
-    cam = splat["camera"]
-    W, H = int(cam["width"]), int(cam["height"])
-    xyz, cov6, _, _ = scenes.splat_scene(splat["scene"], seed, dev)
-    out.append(binned("splat1m_frame", xyz, cov6,
-                      *ref_raster.camera(0.0, W, H, cam["fov_deg"], cam["distance"], dev),
-                      W, H, splat["rasterizer"]))
-    del xyz, cov6
-    for name, (args, cfg) in (("bench_config", bench_scene(dev)),
-                              ("config5", config5_frame(dev))):
-        out.append(tile_bin_args(name, *args[:2], *args[4:8], cfg))
-    return out
-
-
-def config5_frame(dev) -> tuple:
-    """(rasterize_arrays arguments, config) of config 5's first camera."""
-    cloud, cams, cfg = config5_scene(dev)
-    return frame_args(cloud, cams[0]), cfg
-
-
-def tile_bin_compare(got, want) -> dict:
-    """`tile_bin`'s outputs `got` against the plain form's `want`: the
-    table, counts, order and counters equal, and the sorted entries equal
-    the plain form's first E (past which it holds only empty slots)."""
-    E = got[1].numel()
-    stats = ({k: bool(torch.equal(got[5][k], want[5][k])) for k in want[5]}
-             if want[5] is not None else {})
-    rec = {"entries": E, "slots": want[1].numel(),
-           "table_equal": bool(torch.equal(got[0], want[0])),
-           "counts_equal": bool(torch.equal(got[3], want[3])),
-           "order_equal": (got[4] is None and want[4] is None)
-           or (got[4] is not None and want[4] is not None and bool(torch.equal(got[4], want[4]))),
-           "sorted_entry_equal": bool(torch.equal(got[1], want[1][:E])),
-           "stats_equal": all(stats.values()),
-           "stats": {k: int(v) for k, v in (got[5] or {}).items()}}
-    rec["equal"] = all(rec[k] for k in ("table_equal", "counts_equal", "order_equal",
-                                         "sorted_entry_equal", "stats_equal"))
-    return rec
-
-
 def device_busy_ms(fn, iters: int = 5) -> float:
     """Device time of every kernel and copy of one call of `fn`, from a
     torch.profiler trace of `iters` calls (idle between them left out)."""
@@ -786,52 +241,36 @@ def device_busy_ms(fn, iters: int = 5) -> float:
                if ev.device_type == DeviceType.CUDA) / iters / 1e3
 
 
-# The projection's outputs the tile table is built from, in its argument order.
-TABLE_INPUTS = ("means2d", "radius", "depth", "valid")
 TILE_BIN_FIELDS = ("cell", "splats", "valid", "entries", "slots", "kernel_ms",
                    "kernel_device_ms", "plain_ms", "bound_ms", "bound_share",
                    "entry_out_bytes")
+# The `tile_bin` phase's frames (`tile_bin_cells`) each main path's
+# `kernels` entry carries: the two cells' frames and its own.
+TILE_BIN_PATH_CELLS = {"photometric": ("photo_pair_step_view", "splat1m_frame", "bench_config"),
+                       "viewer": ("viewer_default",),
+                       "sharded_train_step": ("sharded_step_camera1",),
+                       "bench_config5": ("config5",)}
 
 
 def tile_bin_shape(name, args, tiles_x, tiles_y, cfg) -> dict:
-    """`tile_bin` (csrc/tile_bin.cu) against the plain form on the card at
-    one frame's table inputs `args`: the table, counts, order and counters
-    equal integer for integer (`tile_bin_compare`), a launch counted a
-    call, the counters' entries over slots; then the kernel path's ms
-    (events around a whole call, its one host read included), its device
-    time (profiler), the plain form's ms and the bound: the least bytes
-    the call must read and write at 3.35 TB/s (1 B a splat's flag, 16 B a
-    valid splat's mean, radius and depth, the [T, K] int32 table, 8 B a
-    tile of counts and order). The sorted entry ids it returns besides are
-    `entry_out_bytes` (4 B an entry), outside the bound. Raises on any
-    difference."""
+    """`tile_bin` (csrc/tile_bin.cu) on the card at one frame's table
+    inputs `args` (its equality with the plain form there is a card test,
+    tests/test_torch_tile_bin.py): the entries it emits over the N·C slots
+    of the plain form; the kernel path's ms (events around a whole call,
+    its one host read included), its device time (profiler), the plain
+    form's ms and the bound: the least bytes the call must read and write
+    at 3.35 TB/s (1 B a splat's flag, 16 B a valid splat's mean, radius
+    and depth, the [T, K] int32 table, 8 B a tile of counts and order). The
+    sorted entry ids it returns besides are `entry_out_bytes` (4 B an
+    entry), outside the bound."""
     from gaussiansplattingregistration_tpu_torch.ops import rasterize as R
-    from gaussiansplattingregistration_tpu_torch.utils import profiling
 
-    run = functools.partial(R._build_tile_table, *args, tiles_x, tiles_y, cfg, with_stats=True)
-    plain = functools.partial(R._build_tile_table_plain, *args, tiles_x, tiles_y, cfg,
-                              with_stats=True)
-    before = R.tile_bin.launches
-    profiling.reset()
-    with profiling.recording():
-        got = run()
-    counters = profiling.snapshot()["counters"]
-    launched = R.tile_bin.launches - before
-    want = plain()
-    torch.cuda.synchronize()
+    timed = functools.partial(R._build_tile_table, *args, tiles_x, tiles_y, cfg)
     rec = {"cell": name, "splats": args[0].shape[0], "valid": int(args[3].sum()),
            "tiles": tiles_x * tiles_y, "C": cfg.max_tiles_per_splat,
-           "K": cfg.max_splats_per_tile, "launches": launched,
-           "bin_entries": counters.get("raster.bin_entries"),
-           "bin_slots": counters.get("raster.bin_slots"),
-           **tile_bin_compare(got, want)}
-    del got, want
-    if not (launched == 1 and rec["equal"] and rec["bin_entries"] == rec["entries"]
-            and rec["bin_slots"] == rec["slots"]):
-        raise AssertionError(f"tile_bin disagrees with the plain form: {rec}")
-    rec["entries_over_slots"] = rec["bin_entries"] / rec["bin_slots"]
-    # Timed as the rasterizer calls it, without the counters.
-    timed = functools.partial(R._build_tile_table, *args, tiles_x, tiles_y, cfg)
+           "K": cfg.max_splats_per_tile, "entries": timed()[1].numel(),
+           "slots": args[0].shape[0] * cfg.max_tiles_per_splat}
+    rec["entries_over_slots"] = rec["entries"] / rec["slots"]
     rec["kernel_ms"] = cuda_ms(timed, 10)
     rec["kernel_device_ms"] = device_busy_ms(timed)
     rec["plain_ms"] = cuda_ms(functools.partial(R._build_tile_table_plain, *args, tiles_x,
@@ -845,14 +284,50 @@ def tile_bin_shape(name, args, tiles_x, tiles_y, cfg) -> dict:
     return rec
 
 
-def tile_bin_fields(recs) -> list:
-    """The `kernels` line's fields of `tile_bin_shape` records."""
-    return [{k: r[k] for k in TILE_BIN_FIELDS} for r in recs]
+def knn_kernel_times(dev) -> list:
+    """`knn_brute` (csrc/knn_brute.cu) through the public functions at the
+    timed cases of `knn_kernel_cases`, `reg200k_hem`'s shapes (its checks
+    against the plain form are card tests, tests/test_torch_knn_kernel.py):
+    the kernel's ms, the plain form's and the bound: 10 FP32
+    instructions a (query, data) pair."""
+    from gaussiansplattingregistration_tpu_torch.ops import knn
+
+    out = []
+    for name, q, d, k, timed in knn_kernel_cases(dev):
+        if not timed:
+            continue
+        if k == 1:
+            run = functools.partial(knn.nearest_neighbor, q, d)
+            plain = functools.partial(knn._nearest_blocked, q, d, None)
+        else:
+            run = functools.partial(knn.knn, q, d, k)
+            plain = functools.partial(knn._knn_blocked, q, d, k, None)
+        rec = {"case": name, "Q": q.shape[0], "N": d.shape[0], "D": q.shape[1], "k": k}
+        iters = 3 if q.shape[0] * d.shape[0] > 5e9 else 10
+        rec["kernel_ms"] = cuda_ms(run, iters)
+        rec["plain_ms"] = cuda_ms(plain, 2, warmup=1)
+        rec["bound_ms"] = 1e3 * q.shape[0] * d.shape[0] * INSTR_PER_KNN_PAIR / PEAK_FP32_INSTR
+        rec["bound_share"] = rec["bound_ms"] / rec["kernel_ms"]
+        rec["gpairs_per_s"] = q.shape[0] * d.shape[0] / rec["kernel_ms"] / 1e6
+        out.append(rec)
+    return out
 
 
-def tile_bin_check(dev) -> list:
-    """`tile_bin_shape` at each of `tile_bin_cells`' shapes."""
-    return [tile_bin_shape(*cell) for cell in tile_bin_cells(dev)]
+def card_tests_phase() -> dict:
+    """The kernels' correctness checks: the card tests of `CARD_TESTS` in
+    a pytest subprocess, their exit code and counts. Raises unless every
+    card test ran and passed."""
+    proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", *CARD_TESTS,
+                           "-m", "card", "-q", "-p", "no:cacheprovider"],
+                          cwd=REPO, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    counts = {key: int(n) for n, key in
+              re.findall(r"(\d+) (passed|failed|skipped|deselected|errors?)", summary)}
+    rec = {"rc": proc.returncode, "counts": counts, "summary": summary}
+    if proc.returncode != 0 or set(counts) - {"passed", "deselected"} or not counts.get("passed"):
+        raise AssertionError(f"card tests: {rec}\n{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}")
+    return rec
 
 
 def knn_phase(dev, surf_src, surf_tgt, vol) -> dict:
@@ -860,7 +335,8 @@ def knn_phase(dev, surf_src, surf_tgt, vol) -> dict:
     neighbor on a 10k-query subset and knn(k=32) on 2k queries of the
     surface pair; the grid against brute within the gate (0.05) on the
     volumetric scene. d2 within 1e-6 relative, no index mismatch but ties.
-    Then the kernel against the plain form on the card (`knn_kernel_check`)."""
+    Then the kernel's times at the registration cell's shapes
+    (`knn_kernel_times`)."""
     from gaussiansplattingregistration_tpu_torch.ops import knn
 
     rec = {}
@@ -906,7 +382,7 @@ def knn_phase(dev, surf_src, surf_tgt, vol) -> dict:
            or not rec["grid_out_of_gate_ok"])
     if bad:
         raise AssertionError(f"neighbor search on the card disagrees: {rec}")
-    rec["kernel"] = knn_kernel_check(dev)
+    rec["kernel"] = knn_kernel_times(dev)
     return rec
 
 
@@ -1122,11 +598,6 @@ def multiscale_phase(dev, cloud, levels) -> dict:
     return rec
 
 
-def load_json(path):
-    with open(path) as fh:
-        return json.load(fh)
-
-
 def run_cli(*args) -> dict:
     """The port's CLI on the card; its last stdout line as JSON."""
     proc = subprocess.run(
@@ -1215,14 +686,6 @@ def cli_e2e_phase(dev, raster_cuda, tmp) -> dict:
     if not abs(res.psnr - metrics["psnr"]) < 1e-4:
         raise AssertionError(f"evaluate in process {res.psnr} vs cli {metrics['psnr']}")
     return rec
-
-
-def pose_err_parts(T_est, T_true):
-    """(rotation error in rad, translation error) of T_est against T_true,
-    as tests/test_goldens.py measures them."""
-    Te, Tt = np.asarray(T_est, np.float64), np.asarray(T_true, np.float64)
-    cos = (np.trace(Te[:3, :3] @ Tt[:3, :3].T) - 1) / 2
-    return float(np.arccos(np.clip(cos, -1, 1))), float(np.linalg.norm(Te[:3, 3] - Tt[:3, 3]))
 
 
 def timed_s(fn):
@@ -1520,12 +983,10 @@ def viewer_phase(dev, raster_cuda) -> tuple:
     default and the zoomed view against the plain path on the card: the
     frame against backend "torch" within 1e-4, and composite_fwd against
     its twin on that view's own kernel inputs at the bench shapes'
-    tolerances (rgb/alpha 1e-4, depth 4e-4, live equal), and the default
-    view's tile table by `tile_bin_shape`. Returns (record, the viewer's
-    `kernels` entry for composite_fwd: its launches in the six frames, its
-    error on the viewer's inputs, and its device time, plain time and bound
-    on the default view's; the viewer's tile_bin entry: its launches in the
-    six frames and the default view's shape)."""
+    tolerances (rgb/alpha 1e-4, depth 4e-4, live equal). Returns (record,
+    the viewer's `kernels` entry for composite_fwd: its launches in the six
+    frames, its error on the viewer's inputs, and its device time, plain
+    time and bound on the default view's)."""
     from gaussiansplattingregistration_tpu_torch.pipelines import viewer
     from gaussiansplattingregistration_tpu_torch.utils.png import decode_png
 
@@ -1569,7 +1030,6 @@ def viewer_phase(dev, raster_cuda) -> tuple:
     tcfg = dataclasses.replace(cfg, backend="torch")
     bg = torch.tensor(scene.background, device=dev)
     parity, entry = {}, {"launches": launches["composite_fwd"], "max_abs_err": 0.0}
-    bins = {"launches": launches["tile_bin"], "shapes": []}
     for name, q in (("default", {}), ("zoom", {"zoom": "-10"})):
         cam = scene.camera_for(q, width, height)
         rgb_cuda = rasterize(scene.cloud, cam, background=scene.background, config=cfg,
@@ -1596,9 +1056,6 @@ def viewer_phase(dev, raster_cuda) -> tuple:
                 and errs[1] <= 1e-4 and errs[2] <= 4e-4 and live_eq):
             raise AssertionError(f"viewer {name} view against the plain path: {parity[name]}")
         if name == "default" and dev.type == "cuda":
-            bins["shapes"].append(tile_bin_shape(
-                "viewer_default", tuple(inputs["proj"][k] for k in TABLE_INPUTS),
-                *inputs["tiles"], cfg))
             fb = fwd_bound(gT, cnt, got, ts, cfg)
             entry.update({
                 "ms": kernel_device_ms(lambda: raster_cuda.composite_tiles(gT, cnt, ts, cfg),
@@ -1620,7 +1077,7 @@ def viewer_phase(dev, raster_cuda) -> tuple:
            "consecutive_mean_abs_diff": [float(np.abs(a - b).mean())
                                          for a, b in zip(frames, frames[1:])],
            "launches": launches, "nan_request_code": bad_code, "code_after_nan": after_code,
-           "against_plain_path": parity, "kernel": entry, "tile_bin": bins}
+           "against_plain_path": parity, "kernel": entry}
     if not (rec["page_ok"] and rec["state"]["num_points"] == cloud.num_points
             and all(s > 0.05 for s in rec["non_background_share"])
             and all(d > 0.1 for d in rec["consecutive_mean_abs_diff"])
@@ -1628,7 +1085,7 @@ def viewer_phase(dev, raster_cuda) -> tuple:
                              "tile_bin": len(views)}
             and bad_code == 500 and after_code == 200):
         raise AssertionError(f"viewer: {rec}")
-    return rec, entry, bins
+    return rec, entry
 
 
 def port_cli_in_process(dev, *args) -> dict:
@@ -1802,7 +1259,7 @@ def visibility_edges(gT, cnt, ts: int, config, tiles_per_step: int = 256) -> tup
     return torch.cat(pix_out), torch.cat(ent_out)
 
 
-def path_kernels(raster_cuda, args, cfg, seed: int, name: str) -> tuple:
+def path_kernels(raster_cuda, args, cfg, seed: int) -> tuple:
     """Both kernels on the inputs of the frame `args`, a main path's own.
     composite_fwd against its twin at the bench shapes' tolerances (rgb
     and alpha 1e-4, depth 4e-4), except at pixels where the two put a pair
@@ -1813,14 +1270,11 @@ def path_kernels(raster_cuda, args, cfg, seed: int, name: str) -> tuple:
     twin by `check_bwd` on seeded cotangents, its error split between the
     entries those pixels touch and the rest. `max_abs_err` is over the
     whole frame; the flipped pixels' count and errors stand beside it.
-    Each one's device time per launch, its twin's time and its bound. The
-    frame's tile table by `tile_bin_shape` (`name`). Returns (the `kernels`
-    fields of composite_fwd, those of composite_bwd, the tile_bin shape,
+    Each one's device time per launch, its twin's time and its bound.
+    Returns (the `kernels` fields of composite_fwd, those of composite_bwd,
     the frame's tile and pair counts)."""
     ts = cfg.tile_size
     inputs = kernel_inputs(args, cfg)
-    bins = tile_bin_shape(name, tuple(inputs["proj"][k] for k in TABLE_INPUTS),
-                          *inputs["tiles"], cfg)
     gT, cnt = inputs["gT"], inputs["cnt"]
     got = raster_cuda.composite_tiles(gT, cnt, ts, cfg)
     torch.cuda.synchronize()
@@ -1871,7 +1325,7 @@ def path_kernels(raster_cuda, args, cfg, seed: int, name: str) -> tuple:
                lambda: raster_cuda.composite_tiles_reference_bwd(gT, cnt, *cts, ts, cfg),
                iters=3, warmup=1),
            "bound_ms": bb["bound_ms"], "bound_by": bb["bound_by"]}
-    return fwd, bwd, bins, {"tiles": int(T_live), "K": int(gT.shape[2]),
+    return fwd, bwd, {"tiles": int(T_live), "K": int(gT.shape[2]),
                             "read_entries": fb["read_entries"], **fb["pairs"]}
 
 
@@ -1970,14 +1424,6 @@ def single_stepper(cloud, cams, views, config, dev):
     return run
 
 
-def frame_args(cloud, cam):
-    """`rasterize_arrays`' arguments for `cloud` seen from `cam`, black
-    background."""
-    return (cloud.xyz, cloud.covariance, cloud.get_opacity[:, 0], cloud.get_features,
-            cam.viewmat, cam.intrinsics, cam.width, cam.height, cloud.sh_degree,
-            torch.zeros(3, device=cloud.xyz.device))
-
-
 def abs_errs(got, want) -> list:
     return [float((a - b).abs().max()) for a, b in zip(got, want)]
 
@@ -1993,11 +1439,10 @@ def parallel_world1_phase(dev, raster_cuda) -> tuple:
     the single-device step; then ms per step of each beside the
     single-device step on the same inputs, in turns. The group is made
     here and destroyed at the end. Returns (record, the `kernels` fields of
-    composite_fwd, composite_bwd and tile_bin on the `sharded_train_step`
-    path)."""
+    composite_fwd and composite_bwd on the `sharded_train_step` path; its
+    launches of each kernel are the record's `path_launches`)."""
     import torch.distributed as dist
 
-    from gaussiansplattingregistration_tpu_torch.models.camera import Camera
     from gaussiansplattingregistration_tpu_torch.ops import rasterize as R
     from gaussiansplattingregistration_tpu_torch.parallel import distributed
     from gaussiansplattingregistration_tpu_torch.parallel.compositor import (
@@ -2010,9 +1455,7 @@ def parallel_world1_phase(dev, raster_cuda) -> tuple:
     try:
         mesh = distributed.global_mesh(data=1)
         cloud, cfg = bench_cloud(dev), bench_config()
-        f = WIDTH / (2 * math.tan(math.radians(70) / 2))
-        cams = [bench_camera(dev),
-                Camera.create(np.eye(3), [0.05, -0.03, 3.0], f, f, WIDTH, HEIGHT, device=dev)]
+        cams = [bench_camera(dev), sharded_step_camera(dev)]
         overflow = [int(R.rasterize_arrays_with_stats(*frame_args(cloud, c), cfg, device=dev)[3]
                         ["live_tile_overflow"]) for c in cams]
         single = R.rasterize_arrays(*frame_args(cloud, cams[0]), cfg, device=dev)
@@ -2057,23 +1500,14 @@ def parallel_world1_phase(dev, raster_cuda) -> tuple:
                 turns[k].append((time.perf_counter() - t0) * 1e3 / 3)
         rec["ms_per_step"] = {k: sum(v) / len(v) for k, v in turns.items()}
         rec["ms_per_step_turns"] = turns
-        fwd, bwd, bins, rec["kernel_inputs"] = path_kernels(
-            raster_cuda, frame_args(cloud, cams[1]), cfg, seed=3, name="sharded_step_camera1")
+        fwd, bwd, rec["kernel_inputs"] = path_kernels(
+            raster_cuda, frame_args(cloud, cams[1]), cfg, seed=3)
     finally:
         distributed.shutdown()
     rec["path_launches"] = path_launches
     fwd["launches"], bwd["launches"] = path_launches["composite_fwd"], \
         path_launches["composite_bwd"]
-    return rec, fwd, bwd, {"launches": path_launches["tile_bin"], "shapes": [bins]}
-
-
-def config5_scene(dev):
-    """bench.py config 5's scene (`bench_photometric`): 100k splats of SH
-    degree 1 from default_rng(4), a 640x360 camera at 70° and its config
-    (max_tiles_per_splat=4, K=256) on backend "cuda"; a second camera
-    moved 0.05 sideways for the train step."""
-    cams = [photometric_camera(dev, pos) for pos in ((0.0, 0.0, 3.0), (0.05, -0.03, 3.0))]
-    return photometric_cloud(100_000, dev), cams, photometric_config()
+    return rec, fwd, bwd
 
 
 def two_rank_worker(out_dir: str, dev) -> None:
@@ -2235,10 +1669,10 @@ def bench_phase(dev, raster_cuda, tmp) -> tuple:
     past max_live_tiles, 32 + 32 kernel launches over the timed frames; the
     four secondaries by bench.py's names, none failed, config 5's timed
     steps 10 + 10 launches (and one tile_bin a frame and a step). Then
-    both kernels and the tile table on config 5's own frame
-    (`path_kernels`; seed 5 for the cotangents). Returns (record, the
-    `kernels` fields of composite_fwd, composite_bwd and tile_bin on that
-    path, with config 5's launches from the subprocess)."""
+    both kernels on config 5's own frame (`path_kernels`; seed 5 for the
+    cotangents). Returns (record, the `kernels` fields of composite_fwd,
+    composite_bwd and tile_bin on that path, with config 5's launches from
+    the subprocess)."""
     extra = os.path.join(tmp, "extra.json")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2270,9 +1704,8 @@ def bench_phase(dev, raster_cuda, tmp) -> tuple:
         raise AssertionError(f"bench: {rec}")
 
     args, cfg = config5_frame(dev)
-    fwd, bwd, bins, counts = path_kernels(raster_cuda, args, cfg, seed=5, name="config5_frame")
-    rec["config5_frame"] = counts
-    bins = {"shapes": [bins]}
+    fwd, bwd, rec["config5_frame"] = path_kernels(raster_cuda, args, cfg, seed=5)
+    bins = {}
     for fields, name in ((fwd, "composite_fwd"), (bwd, "composite_bwd"), (bins, "tile_bin")):
         fields["launches"] = photo["launches"][name]
         fields["launches_per_step"] = photo["launches"][name] / steps[name]
@@ -2332,58 +1765,15 @@ def main() -> int:
                         if "registers" in ln or "smem" in ln or "spill" in ln]
                     for k, v in _build.build_logs.items()}})
 
-    # 3. Kernels vs twins on seeded tiles, then on adversarial tiles that
-    # probe the footprint culling (boundary pairs 1e-3 inside and outside
-    # the visibility edge, so that f32 rounding on the card and on the host
-    # cannot flip them); then the card's boxes themselves, at 1e-6 from the
-    # edge (`footprint_check`). Forward tolerances: rgb/alpha 1e-5 and depth 1e-4
-    # (depths reach 5); `live` exactly. The kernel keeps T as a running
-    # product, the twin as exp(cumsum(log1p(-alpha))): they differ by
-    # rounding only. Backward: check_bwd, on seeded cotangents, from the
-    # forward kernel's outputs; a second launch must give the same bits.
-    cfg = R.RasterizeConfig()
-    rng = np.random.default_rng(0)
-    tile_sets = []
-    for K, fixed in ((384, [0, 1, 127, 128, 129, 384]), (64, [0, 1, 63, 64])):
-        counts = fixed + list(rng.integers(0, K + 1, 64 - len(fixed)))
-        tile_sets.append((f"seeded, K={K}", *random_tiles(rng, counts, K, dev)))
-    tile_sets.append(("adversarial", *adversarial_tiles(rng, (-1e-3, 1e-3), dev)))
-    for where, gT, cnt in tile_sets:
-        T0, K = gT.shape[0], gT.shape[2]
-        got = raster_cuda.composite_tiles(gT, cnt, 16, cfg)
-        torch.cuda.synchronize()
-        want = raster_cuda.composite_tiles_reference(gT, cnt, 16, cfg)
-        errs, live_eq = max_errs(got, want)
-        pairs = pair_counts(gT, cnt, 16, cfg)
-        emit({"phase": "kernel_vs_twin", "tiles": where, "K": K,
-              "max_abs_err": {"rgb": errs[0], "alpha": errs[1], "depth": errs[2]},
-              "live_equal": live_eq, "pairs": pairs})
-        if not (errs[0] <= 1e-5 and errs[1] <= 1e-5 and errs[2] <= 1e-4 and live_eq):
-            raise AssertionError(f"composite kernel disagrees with its twin ({where})")
-
-        cts = [torch.tensor(rng.normal(size=s), dtype=torch.float32, device=dev)
-               for s in ((T0, 256, 3), (T0, 256), (T0, 256))]
-        d_got = raster_cuda.composite_tiles_bwd(gT, cnt, *cts, 16, cfg, fwd_out=got)
-        d_again = raster_cuda.composite_tiles_bwd(gT, cnt, *cts, 16, cfg, fwd_out=got)
-        torch.cuda.synchronize()
-        d_want = raster_cuda.composite_tiles_reference_bwd(gT, cnt, *cts, 16, cfg)
-        rec = check_bwd(d_got, d_want, where)
-        counts = cnt[:, 0].long().tolist()
-        past = all(bool((d_got[t, :, c:] == 0).all()) for t, c in enumerate(counts))
-        same = bool(torch.equal(d_got, d_again))
-        emit({"phase": "bwd_kernel_vs_twin", "tiles": where, "K": K, **rec,
-              "zeros_past_counts": past, "bitwise_deterministic": same,
-              "clamped_pairs": pairs["clamped"]})
-        if not past:
-            raise AssertionError("composite_bwd wrote nonzero gradients past a tile's count")
-        if not same:
-            raise AssertionError(f"composite_bwd is not deterministic ({where})")
-        if where.startswith("seeded") and not pairs["clamped"]:
-            raise AssertionError("no seeded pair reaches the alpha_max clamp")
-    emit({"phase": "footprint", **footprint_check(dev)})
+    # 3. Each kernel against its plain form: the card tests, in a pytest
+    # subprocess. Then the tile table's times at the frames of the cells
+    # that bin and of the main paths below.
     t0 = time.perf_counter()
-    tile_bin_recs = tile_bin_check(dev)
-    emit({"phase": "tile_bin", "cells": tile_bin_recs, "seconds": time.perf_counter() - t0})
+    emit({"phase": "card_tests", **card_tests_phase(), "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    tile_bin_recs = {cell[0]: tile_bin_shape(*cell) for cell in tile_bin_cells(dev)}
+    emit({"phase": "tile_bin", "cells": list(tile_bin_recs.values()),
+          "seconds": time.perf_counter() - t0})
 
     # 4. The forward path at full width: the bench scene through
     # rasterize_arrays_with_stats, then the same frame on backend="torch".
@@ -2692,7 +2082,7 @@ def main() -> int:
         rec = fn()
         emit({"phase": phase, "card": card, **rec, "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    viewer_rec, viewer_fwd, viewer_bins = viewer_phase(dev, raster_cuda)
+    viewer_rec, viewer_fwd = viewer_phase(dev, raster_cuda)
     emit({"phase": "viewer", "card": card, **viewer_rec, "seconds": time.perf_counter() - t0})
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -2705,7 +2095,7 @@ def main() -> int:
     # two gloo ranks sharing the card in two processes, and `evaluate
     # --sharded on` in this process.
     t0 = time.perf_counter()
-    world1_rec, world1_fwd, world1_bwd, world1_bins = parallel_world1_phase(dev, raster_cuda)
+    world1_rec, world1_fwd, world1_bwd = parallel_world1_phase(dev, raster_cuda)
     emit({"phase": "parallel_world1", "card": card, **world1_rec,
           "seconds": time.perf_counter() - t0})
     with tempfile.TemporaryDirectory() as tmp:
@@ -2737,11 +2127,11 @@ def main() -> int:
     # counted in its own process); then the kNN kernel, which replaces no
     # TPU kernel: its launches in the registration path's icp, hem and
     # multiscale phases (`brute_launches`), beside its times at the
-    # registration cell's shapes (`knn_kernel_check`); then the tile-binning
+    # registration cell's shapes (`knn_kernel_times`); then the tile-binning
     # kernel, which replaces no TPU kernel either, on the same four paths:
-    # its launches there (one a table) and its numbers on the path's own
-    # frame; the photometric path's entry carries the `tile_bin` phase's
-    # shapes (the two cells' frames, the bench frame, config 5's camera 0).
+    # its launches there (one a table) and the `tile_bin` phase's numbers
+    # on the path's own frame, the photometric path's beside the two
+    # cells' frames (`TILE_BIN_PATH_CELLS`).
     src = "gaussiansplattingregistration_tpu_torch/csrc/"
     ref = "gaussiansplattingregistration_tpu/ops/raster_pallas.py:"
     fwd = {"name": "composite_fwd", "route": "cuda", "source": src + "composite_fwd.cu",
@@ -2750,6 +2140,11 @@ def main() -> int:
            "replaces": ref + "270"}
     bins = {"name": "tile_bin", "route": "cuda", "source": src + "tile_bin.cu", "replaces": None,
             "bound_by": "bytes", "library_ms": None}
+
+    def bin_shapes(path):
+        return [{k: tile_bin_recs[cell][k] for k in TILE_BIN_FIELDS}
+                for cell in TILE_BIN_PATH_CELLS[path]]
+
     emit({"kernels": [
         {**fwd, "path": "photometric", "launches": launches_photo["composite_fwd"],
          "max_abs_err": max(errs), "ms": kernel_ms, "plain_ms": plain_ms,
@@ -2769,15 +2164,16 @@ def main() -> int:
          "shapes": [{"case": c["case"], "Q": c["Q"], "N": c["N"], "k": c["k"],
                      "ms": c["kernel_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_share": c["bound_share"]}
-                    for c in reg_recs["knn"]["kernel"] if "kernel_ms" in c],
+                    for c in reg_recs["knn"]["kernel"]],
          "bound_by": "fp32_issue", "library_ms": None},
         {**bins, "path": "photometric", "launches": launches_photo["tile_bin"],
-         "shapes": tile_bin_fields(tile_bin_recs)},
-        {**bins, "path": "viewer", **viewer_bins, "shapes": tile_bin_fields(viewer_bins["shapes"])},
-        {**bins, "path": "sharded_train_step", **world1_bins,
-         "shapes": tile_bin_fields(world1_bins["shapes"])},
-        {**bins, "path": "bench_config5", **bench_bins,
-         "shapes": tile_bin_fields(bench_bins["shapes"])},
+         "shapes": bin_shapes("photometric")},
+        {**bins, "path": "viewer", "launches": viewer_rec["launches"]["tile_bin"],
+         "shapes": bin_shapes("viewer")},
+        {**bins, "path": "sharded_train_step",
+         "launches": world1_rec["path_launches"]["tile_bin"],
+         "shapes": bin_shapes("sharded_train_step")},
+        {**bins, "path": "bench_config5", **bench_bins, "shapes": bin_shapes("bench_config5")},
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

@@ -29,7 +29,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-import chip_smoke as cs  # noqa: E402
+import port_scenes as scenes  # noqa: E402
 from gaussiansplattingregistration_tpu_torch.models import parameters as P  # noqa: E402
 from gaussiansplattingregistration_tpu_torch.models.point_cloud import PointCloud  # noqa: E402
 from gaussiansplattingregistration_tpu_torch.ops import global_registration as gr  # noqa: E402
@@ -55,9 +55,9 @@ def main() -> int:
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip(), flush=True)
 
-    src, tgt, col, T_src = cs.global_draws(50_000)
+    src, tgt, col, T_src = scenes.global_draws(50_000)
     truth = np.linalg.inv(T_src)
-    S, T = cs.point_cloud(src, col, dev), cs.point_cloud(tgt, col, dev)
+    S, T = scenes.point_cloud(src, col, dev), scenes.point_cloud(tgt, col, dev)
     ransac = P.RANSACRegistrationParams(
         voxel_size=0.05, max_iteration=100_000, confidence=0.999,
         checkers=(P.CorrespondenceChecker("edge_length", 0.9),
@@ -67,15 +67,15 @@ def main() -> int:
     found, refined = [], []
     for seed in range(args.seeds):
         g = gr.ransac_registration(S, T, ransac, seed=seed)
-        found.append(cs.pose_err_parts(g.transformation, truth))
+        found.append(scenes.pose_err_parts(g.transformation, truth))
         if args.refine:
             r = icp.icp(S, T, refine, init_transform=g.transformation)
-            refined.append(cs.pose_err_parts(r.transformation, truth))
+            refined.append(scenes.pose_err_parts(r.transformation, truth))
     sweep(f"config2_ransac_{args.device}", found, 0.05)
     if args.refine:
         sweep(f"config2_ransac_refined_{args.device}", refined, 0.05)
     sweep(f"config2_fgr_{args.device}", [
-        cs.pose_err_parts(gr.fgr_registration(S, T, P.FGRRegistrationParams(voxel_size=0.05),
+        scenes.pose_err_parts(gr.fgr_registration(S, T, P.FGRRegistrationParams(voxel_size=0.05),
                                               seed=seed).transformation, truth)
         for seed in range(args.seeds)], 0.05)
 
@@ -84,7 +84,7 @@ def main() -> int:
     gs = PointCloud(points=torch.tensor(g["source"], dtype=torch.float32, device=dev))
     gt = PointCloud(points=torch.tensor(g["target"], dtype=torch.float32, device=dev))
     sweep(f"golden_fgr_{args.device}", [
-        cs.pose_err_parts(gr.fgr_registration(gs, gt, P.FGRRegistrationParams(voxel_size=vox),
+        scenes.pose_err_parts(gr.fgr_registration(gs, gt, P.FGRRegistrationParams(voxel_size=vox),
                                               seed=seed).transformation, g["T_true"])
         for seed in range(args.seeds)], vox)
     if args.jax:
@@ -100,7 +100,7 @@ def main() -> int:
         js = JPC(points=jnp.asarray(g["source"], jnp.float32))
         jt = JPC(points=jnp.asarray(g["target"], jnp.float32))
         sweep("golden_fgr_jax_cpu", [
-            cs.pose_err_parts(jgr.fgr_registration(js, jt, JP.FGRRegistrationParams(
+            scenes.pose_err_parts(jgr.fgr_registration(js, jt, JP.FGRRegistrationParams(
                 voxel_size=vox), seed=seed).transformation, g["T_true"])
             for seed in range(args.seeds)], vox)
     return 0

@@ -25,7 +25,7 @@ from gaussiansplattingregistration_tpu.ops.rasterize import rasterize_arrays as 
 from gaussiansplattingregistration_tpu.ops.rasterize import (
     rasterize_arrays_with_stats as j_rasterize_stats,
 )
-from tests.torch_threads import two_torch_threads  # noqa: F401
+from port_scenes import two_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
@@ -190,7 +190,9 @@ def test_main_keeps_the_stdout_contract(monkeypatch, capsys, tmp_path):
 
 def test_a_failing_secondary_is_reported_not_raised(monkeypatch, capsys, tmp_path):
     """bench.py's catch: a secondary that raises becomes an entry with its
-    name and `error`, and the headline is still the one stdout line."""
+    name and `error`, and the headline is still the one stdout line. With
+    `--headline-only` no secondary runs; without a card and without
+    `--device cpu`, `main` raises before any work."""
     small_headline(monkeypatch)
     names = ["bench_icp", "bench_global", "bench_hem_multiscale", "bench_photometric"]
 
@@ -210,3 +212,11 @@ def test_a_failing_secondary_is_reported_not_raised(monkeypatch, capsys, tmp_pat
     secondary = json.loads(extra.read_text())["secondary"]
     assert [r["metric"] for r in secondary] == names
     assert all(r["error"] == "ValueError('no such cloud')" for r in secondary)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        B.main(["--headline-only"])
+    for name, value in (("N_SPLATS", 2000), ("ITERS", 1)):
+        monkeypatch.setattr(B, name, value)
+    B.main(["--headline-only", "--device", "cpu", "--extra-out", str(extra)])
+    assert json.loads(extra.read_text())["secondary"] == []

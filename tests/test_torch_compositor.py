@@ -30,6 +30,9 @@ from gaussiansplattingregistration_tpu_torch.ops.rasterize import (
 )
 from tests.test_compositor import make_camera, make_scene
 from tests.torch_dist_workers import camera_case, cloud_case, port_camera, port_cloud, run_group
+from port_scenes import two_torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 CFG_EXACT = dict(max_splats_per_tile=256, tile_chunk=4, transmittance_min=0.0)
 CFG_DEFAULT = dict(max_splats_per_tile=256, tile_chunk=4)

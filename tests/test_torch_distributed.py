@@ -22,6 +22,9 @@ from gaussiansplattingregistration_tpu_torch.cli.main import main as port_main
 from gaussiansplattingregistration_tpu_torch.parallel import collectives, distributed
 from gaussiansplattingregistration_tpu_torch.parallel.mesh import axis_size
 from tests.torch_dist_workers import camera_case, cloud_case, run_group, single_device_step
+from port_scenes import demo_photometric_views, two_torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
@@ -109,9 +112,7 @@ def test_cli_evaluate_sharded_matches_off_and_jax(no_torchrun_env, tmp_path, cap
     off` and against the JAX package's `evaluate_registration_sharded` on the
     demo pair's three views: MSE, RMSE, PSNR and SSIM within 1e-5, LPIPS
     null; the CLI ends the group it made."""
-    import chip_smoke
-
-    cams_json, init_json, _ = chip_smoke.demo_photometric_views(str(tmp_path), 64, "cpu")
+    cams_json, init_json, _ = demo_photometric_views(str(tmp_path), 64, "cpu")
     src, tgt = os.path.join(DATA, "demo_source.ply"), os.path.join(DATA, "demo_target.ply")
     common = ["evaluate", src, tgt, "--transform", init_json, "--cameras", cams_json,
               "--images-path", str(tmp_path), "--no-lpips", "--device", "cpu"]
@@ -142,11 +143,10 @@ def test_library_sharded_evaluation_ends_only_the_group_it_made(no_torchrun_env,
     within 1e-5."""
     import dataclasses
 
-    import chip_smoke
     from gaussiansplattingregistration_tpu_torch.pipelines import evaluation
     from gaussiansplattingregistration_tpu_torch.utils import io
 
-    cams_json, init_json, _ = chip_smoke.demo_photometric_views(str(tmp_path), 64, "cpu")
+    cams_json, init_json, _ = demo_photometric_views(str(tmp_path), 64, "cpu")
     cams = evaluation.load_cameras_json(cams_json, device="cpu")
     cams = [cams[0], dataclasses.replace(cams[1], image_name="absent"), cams[2].resized(0.5)]
     with open(init_json) as fh:

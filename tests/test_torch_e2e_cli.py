@@ -18,11 +18,15 @@ import os
 import numpy as np
 import pytest
 
-import chip_smoke
 from gaussiansplattingregistration_tpu.cli.main import _save_transform as jax_save
 from gaussiansplattingregistration_tpu.cli.main import build_parser as jax_parser
 from gaussiansplattingregistration_tpu_torch.cli.main import main as port_main
-from tests.torch_threads import two_torch_threads  # noqa: F401
+from port_scenes import (  # noqa: F401
+    check_png,
+    demo_photometric_views,
+    pose_error,
+    two_torch_threads,
+)
 
 pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
@@ -65,20 +69,20 @@ def test_full_cli_flow(tmp_path, capsys, truth):
                    "--max-correspondence", "0.3", "--max-iteration", "30", "--output", t1)
     assert set(out) == transform_keys(capsys, {"fitness": 0, "inlier_rmse": 0,
                                                "num_iterations": 0})
-    assert chip_smoke.pose_error(json.loads(t1.read_text())["transformation"], T_off) < 2e-2
+    assert pose_error(json.loads(t1.read_text())["transformation"], T_off) < 2e-2
 
     out = port_cli(capsys, "multiscale", SRC, TGT, "--use-mixture", "--voxel-values", "0.3,0.1",
                    "--iter-values", "15,10", "--init-transform", t1, "--output", t2)
     assert set(out) == transform_keys(capsys, {"fitness": 0, "inlier_rmse": 0})
-    assert chip_smoke.pose_error(json.loads(t2.read_text())["transformation"], T_off) < 2e-2
+    assert pose_error(json.loads(t2.read_text())["transformation"], T_off) < 2e-2
 
     img_dir = tmp_path / "images"
     img_dir.mkdir()
-    cams_json, _, _ = chip_smoke.demo_photometric_views(str(img_dir), 64, "cpu")
+    cams_json, _, _ = demo_photometric_views(str(img_dir), 64, "cpu")
     port_cli(capsys, "photometric", SRC, "--second", TGT, "--cameras", cams_json,
              "--images-path", img_dir, "--init-transform", t2, "--steps", "20", "--lr", "1e-3",
              "--output", t3)
-    assert chip_smoke.pose_error(json.loads(t3.read_text())["transformation"], T_off) < 2e-2
+    assert pose_error(json.loads(t3.read_text())["transformation"], T_off) < 2e-2
 
     log = tmp_path / "eval.json"
     metrics = port_cli(capsys, "evaluate", SRC, TGT, "--transform", t3, "--cameras", cams_json,
@@ -97,7 +101,7 @@ def test_full_cli_flow(tmp_path, capsys, truth):
     assert out == {"output": str(merged), "num_points": 2 * truth["n"]}
     png = tmp_path / "render.png"
     port_cli(capsys, "render", merged, png, "--width", "96", "--height", "96")
-    chip_smoke.check_png(str(png), 96, 96)
+    check_png(str(png), 96, 96)
 
 
 def test_register_and_merge_match_jax_cli(tmp_path, capsys):

@@ -28,7 +28,7 @@ from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfi
 from gaussiansplattingregistration_tpu_torch.pipelines import evaluation
 from gaussiansplattingregistration_tpu_torch.utils.png import write_png
 from tests.test_pipelines import make_cams, make_render_scene
-from tests.torch_threads import two_torch_threads  # noqa: F401
+from port_scenes import two_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("two_torch_threads")
 

@@ -5,7 +5,7 @@
 `warp_candidates` its warp layout and lists. The kernels only run on the
 card, so these tests hold the formula to what the plain twin composites:
 no visible pair may fall outside its entry's box or off its warp's list, on
-`chip_smoke.random_tiles` and on adversarial tiles (pixel centres just
+`port_scenes.random_tiles` and on adversarial tiles (pixel centres just
 inside, on and just outside the visibility edge; opacity at, just below and
 just above alpha_clip; conics that are not positive definite; means off the
 tile). The one-sweep backward rests on an identity, checked here with the
@@ -20,10 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from gaussiansplattingregistration_tpu_torch.ops import _build
 from gaussiansplattingregistration_tpu_torch.ops import raster_cuda as RC
 from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfig
+from port_scenes import adversarial_tiles, random_tiles, two_torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 CFG = RasterizeConfig()
 CLIP32 = np.float32(CFG.alpha_clip)
@@ -36,11 +38,11 @@ def tile_set(name):
     if name.startswith("random"):
         K = int(name.split("_")[1])
         counts = [0, 1, K // 2, K] + list(rng.integers(0, K + 1, 12))
-        return chip_smoke.random_tiles(rng, counts, K, "cpu")
+        return random_tiles(rng, counts, K, "cpu")
     if name == "saturating":
-        gT, cnt = chip_smoke.random_tiles(rng, [384] * 16, 384, "cpu")
+        gT, cnt = random_tiles(rng, [384] * 16, 384, "cpu")
         return gT[::4].contiguous(), cnt[::4]
-    gT, cnt = chip_smoke.adversarial_tiles(rng, (-1e-6, 0.0, 1e-6), "cpu")
+    gT, cnt = adversarial_tiles(rng, (-1e-6, 0.0, 1e-6), "cpu")
     if name == "adversarial":
         return gT, cnt
     kind = ADVERSARIAL[name]
@@ -192,7 +194,8 @@ def test_composite_saves_outputs_for_the_backward():
 def test_footprint_boxes_round_outward_to_f32(name):
     """The f32 boxes (the header rounds its f64 edges outward) hold the f64
     ones and lie within one f32 step of them; infinite edges stay as they
-    are. The card's boxes are held to these in chip_smoke.py."""
+    are. The card's boxes are held to these in
+    tests/test_torch_composite_kernels.py."""
     gT, _ = tile_set(name)
     exact = RC.entry_footprints(gT, CFG)
     boxes = RC.footprint_boxes(gT, CFG)

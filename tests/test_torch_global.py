@@ -43,7 +43,7 @@ from gaussiansplattingregistration_tpu_torch.models.point_cloud import PointClou
 from gaussiansplattingregistration_tpu_torch.ops import features, global_registration as gr
 from tests.test_global_registration import displaced_pair, make_structured_cloud
 from tests.test_goldens import _fitness_rmse_oracle, _pose_err, _voxel_downsample_oracle
-from tests.torch_threads import two_torch_threads  # noqa: F401
+from port_scenes import two_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("two_torch_threads")
 

@@ -32,7 +32,7 @@ from gaussiansplattingregistration_tpu_torch.models.parameters import GaussianMi
 from gaussiansplattingregistration_tpu_torch.ops import hem, knn, math3d
 from tests.conftest import make_random_cloud
 from tests.test_hem import make_dense_cloud
-from tests.torch_threads import two_torch_threads  # noqa: F401
+from port_scenes import two_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("two_torch_threads")
 

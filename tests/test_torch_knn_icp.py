@@ -33,7 +33,7 @@ from gaussiansplattingregistration_tpu_torch.pipelines import multiscale
 from gaussiansplattingregistration_tpu_torch.utils import profiling
 from tests.test_goldens import _pose_err
 from tests.test_icp import gt_transform, make_surface_cloud
-from tests.torch_threads import two_torch_threads  # noqa: F401
+from port_scenes import two_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("two_torch_threads")
 

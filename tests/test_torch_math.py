@@ -11,6 +11,9 @@ import torch
 
 from gaussiansplattingregistration_tpu.ops import math3d as jm, sh as jsh
 from gaussiansplattingregistration_tpu_torch.ops import math3d as tm, sh as tsh
+from port_scenes import two_torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 ATOL = 1e-5
 

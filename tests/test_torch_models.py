@@ -20,6 +20,9 @@ from gaussiansplattingregistration_tpu_torch.models.gaussian_cloud import Gaussi
 from gaussiansplattingregistration_tpu_torch.models.point_cloud import PointCloud
 from gaussiansplattingregistration_tpu_torch.utils import io as tio
 from tests.conftest import make_random_cloud
+from port_scenes import two_torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 FIELDS = ("xyz", "features_dc", "features_rest", "opacity", "scaling", "rotation")

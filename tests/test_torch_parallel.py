@@ -42,6 +42,9 @@ from tests.torch_dist_workers import (
     run_group,
     single_device_step,
 )
+from port_scenes import two_torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 CFG = dict(max_splats_per_tile=64, tile_chunk=4)
 BG = (0.2, 0.1, 0.3)

@@ -25,6 +25,9 @@ from gaussiansplattingregistration_tpu_torch.ops.rasterize import RasterizeConfi
 from gaussiansplattingregistration_tpu_torch.pipelines import photometric
 from tests.test_pipelines import make_cams, make_render_scene
 from tests.test_torch_rasterize import jax_config
+from port_scenes import two_torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 
 # ------------------------------------------------------------------ se3

@@ -31,7 +31,7 @@ from splatbench import scenes
 from splatbench.drivers import photometric as drv
 from splatbench.reference import photometric as ref
 from splatbench.reference import raster as ref_raster
-from tests.torch_threads import two_torch_threads  # noqa: F401
+from port_scenes import two_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("two_torch_threads")
 

@@ -41,7 +41,7 @@ from gaussiansplattingregistration_tpu_torch.utils import io as tio
 from tests.conftest import make_random_cloud
 from tests.test_hem import make_dense_cloud
 from tests.test_planes import make_planar_cloud
-from tests.torch_threads import two_torch_threads  # noqa: F401
+from port_scenes import two_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("two_torch_threads")
 

@@ -19,12 +19,14 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-import chip_smoke
 from gaussiansplattingregistration_tpu.ops import raster_pallas
 from gaussiansplattingregistration_tpu.ops import rasterize as JR
 from gaussiansplattingregistration_tpu_torch.ops import raster_cuda
 from gaussiansplattingregistration_tpu_torch.ops import rasterize as TR
 from tests.test_rasterize import HEIGHT, WIDTH, make_camera, make_scene
+from port_scenes import random_tiles as scene_tiles, two_torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 JAX_BACKEND = {"cuda": "pallas", "torch": "xla"}
@@ -92,9 +94,9 @@ def test_config_fields_match_jax():
 # -------------------------------------------------- (a) compositor vs JAX
 
 def random_tiles(rng, counts, K):
-    """chip_smoke's seeded tiles (zero past counts; every fourth tile
+    """port_scenes' seeded tiles (zero past counts; every fourth tile
     saturates) as numpy."""
-    gT, cnt = chip_smoke.random_tiles(rng, counts, K, "cpu")
+    gT, cnt = scene_tiles(rng, counts, K, "cpu")
     return gT.numpy(), cnt.numpy()
 
 

@@ -22,13 +22,15 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-import chip_smoke
 from gaussiansplattingregistration_tpu.ops import raster_pallas
 from gaussiansplattingregistration_tpu.ops import rasterize as JR
 from gaussiansplattingregistration_tpu_torch.ops import raster_cuda
 from gaussiansplattingregistration_tpu_torch.ops import rasterize as TR
 from tests.test_rasterize import HEIGHT, WIDTH, make_camera, make_scene
 from tests.test_torch_rasterize import DATA, jax_config, random_tiles, scene_arrays
+from port_scenes import pair_counts, two_torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 PARAMS = ("means", "cov", "opacity", "features")
 
@@ -84,8 +86,7 @@ def test_composite_bwd_twin_matches_pallas_vjp(rng, K, fixed):
     g_d = rng.normal(size=(T0, P)).astype(np.float32)
     cfg = TR.RasterizeConfig()
     # The saturating tiles reach the alpha_max clamp, where 1/(1 - alpha) = 1000.
-    assert chip_smoke.pair_counts(torch.as_tensor(gT), torch.as_tensor(cnt), 16,
-                                  cfg)["clamped"] > 0
+    assert pair_counts(torch.as_tensor(gT), torch.as_tensor(cnt), 16, cfg)["clamped"] > 0
     got = raster_cuda.composite_tiles_reference_bwd(
         torch.as_tensor(gT), torch.as_tensor(cnt), torch.as_tensor(g_rgb),
         torch.as_tensor(g_a), torch.as_tensor(g_d), 16, cfg).numpy()

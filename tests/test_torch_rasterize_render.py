@@ -23,6 +23,9 @@ from tests.test_torch_rasterize import (
     DATA, XLA_CFG, assert_images_close, assert_stats_equal, jax_config, render_both,
     scene_arrays,
 )
+from port_scenes import two_torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])

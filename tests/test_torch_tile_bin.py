@@ -3,9 +3,9 @@ kernels of `csrc/tile_bin.cu` (`rasterize.tile_bin`) against the plain form
 on the card.
 
 The card tests are marked `card` and skip without a CUDA card. On the
-card's machine, from the repo root:
+card's machine, from the repo root, with the other kernels' card tests:
 
-    python -m pytest --noconftest tests/test_torch_tile_bin.py -m card -q
+    python -m pytest --noconftest tests/test_torch_tile_bin.py tests/test_torch_composite_kernels.py tests/test_torch_knn_kernel.py -m card -q
 
 This file imports no JAX and takes nothing from `conftest.py`, so that it
 runs there without either.
@@ -19,6 +19,9 @@ import torch
 
 from gaussiansplattingregistration_tpu_torch.ops import rasterize as R
 from gaussiansplattingregistration_tpu_torch.utils import profiling
+from port_scenes import tile_bin_cells, tile_bin_compare, two_torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 
 @pytest.fixture
@@ -121,12 +124,10 @@ def test_cpu_tensors_take_the_plain_form_and_tile_bin_refuses_them():
 
 def assert_same_table(got, want):
     """The kernel path's outputs against the plain form's
-    (`chip_smoke.tile_bin_compare`): table, counts, order and counters
+    (`port_scenes.tile_bin_compare`): table, counts, order and counters
     equal; sorted entries equal the plain form's first E, past which the
     plain form holds only empty slots; no live flags."""
-    import chip_smoke
-
-    rec = chip_smoke.tile_bin_compare(got, want)
+    rec = tile_bin_compare(got, want)
     assert rec["equal"], rec
     assert rec["stats"]["total_entries"] == rec["entries"]
     assert all(v.dtype == torch.int32 for v in got[5].values())
@@ -188,20 +189,19 @@ def test_tile_bin_matches_plain_form_on_card(card, case):
 def cell_inputs():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the card's machine)")
-    import chip_smoke
-
-    return chip_smoke.tile_bin_cells(torch.device("cuda"))
+    return tile_bin_cells(torch.device("cuda"))
 
 
 @pytest.mark.card
 @pytest.mark.parametrize("cell", ["photo_pair_step_view", "splat1m_frame", "bench_config",
-                                  "config5"])
+                                  "viewer_default", "sharded_step_camera1", "config5"])
 def test_tile_bin_matches_plain_form_at_cell_shapes(cell_inputs, cell):
     """One view of `photo_pair_step` (2.2M splats, C=36, K=3072, 1557x1038,
     partial tiles), one frame of the 720p cells (C=4, K=512,
     `max_live_tiles` 2688), and the frames of `chip_smoke.py`'s main paths
-    (the bench frame at K=384, config 5's at 640x360), with the counters of
-    the traced run."""
+    (the bench frame at K=384, the viewer's default view at C=16, K=256,
+    the sharded train step's second camera, config 5's at 640x360), with
+    the counters of the traced run."""
     _, args, tiles_x, tiles_y, cfg = next(c for c in cell_inputs if c[0] == cell)
     before = R.tile_bin.launches
     profiling.reset()

@@ -23,6 +23,9 @@ from gaussiansplattingregistration_tpu_torch.ops import hem, icp
 from gaussiansplattingregistration_tpu_torch.ops import rasterize as TR
 from gaussiansplattingregistration_tpu_torch.pipelines import multiscale
 from gaussiansplattingregistration_tpu_torch.utils import profiling
+from port_scenes import two_torch_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
 RASTER_STAGES = {"raster.project", "raster.sh", "raster.bin", "raster.gather",
                  "raster.composite", "raster.unpack"}

@@ -38,7 +38,7 @@ from gaussiansplattingregistration_tpu_torch.utils.logging import (
 )
 from gaussiansplattingregistration_tpu_torch.utils.png import decode_png, encode_png
 from tests.conftest import make_random_cloud
-from tests.torch_threads import two_torch_threads  # noqa: F401
+from port_scenes import two_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("two_torch_threads")
 
